@@ -1,23 +1,40 @@
-"""Drive the PyTorch port's inference path on one CUDA card, phase by phase.
+"""Drive the PyTorch port's inference and training paths on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--profile DIR]
 
 1. device: the card's name and power limit (nvidia-smi).
-2. build: ``nvcc`` builds ``planerecnet_tpu_torch/csrc/dcn_im2col.cu`` for
-   sm_90a into ``planerecnet_tpu_torch/_build/``.
+2. build: one ``nvcc`` per source in ``planerecnet_tpu_torch/csrc/``
+   (dcn_im2col, dcn_scatter, dice_lava), all started together, for sm_90a
+   into ``planerecnet_tpu_torch/_build/``.
 3. kernel: the deformable im2col kernel against its plain PyTorch version at
    the six distinct DCN layer shapes of PlaneRecNet-50 at batch 8, 480x640,
    in f32 and bf16; timed beside the plain version, the ``F.grid_sample``
    yardstick and the least time the card could take.
-4. main path: ``PlaneRecNetRunner(PlaneRecNet_50_config)`` with seeded,
-   perturbed weights answers 5 requests of 8 distinct 480x640 frames; the
-   kernel's launch count must rise by 13 per request.
-5. CPU against GPU: the same weights on one smaller frame through the CPU
-   (plain) path and the card (kernel) path.
+4. training kernels, each against its plain version at the training shapes
+   (batch 8, 640x640) and timed beside it, its bound and, where one exists,
+   the one PyTorch call that computes the same function: the DCN
+   input-gradient scatter at the six PRN-50 DCN layer shapes (yardstick
+   ``grid_sampler_2d_backward``), the fused dice/lava forward and backward
+   (no single PyTorch call computes them); and the DCN Function's gradients
+   against autograd of the plain forward at a small shape.
+5. inference main path: ``PlaneRecNetRunner(PlaneRecNet_50_config)`` with
+   seeded, perturbed weights answers 3 requests of 8 distinct 480x640
+   frames; the im2col's launch count must rise by 13 per request.
+6. inference CPU against GPU: the same weights on one smaller frame through
+   the CPU (plain) path and the card (kernel) path.
+7. training main path: ``trainer.train_step`` on PlaneRecNet-50, batch 8,
+   640x640, f32, all five losses, seeded perturbed weights, one fixed
+   synthetic batch in the JAX package's layout: 1 warm-up step, 6 timed
+   steps, 20 in all. The loss must be finite, fall, and move the weights;
+   the launch counts must rise per step by 26 (im2col: forward, and the
+   backward's unmodulated samples), 13 (scatter), 4 and 4 (dice/lava).
+8. training CPU against GPU: one step of the tiny preset on the same
+   weights, batch and VNL indices on both devices, TF32 off.
 
-6. with ``--profile DIR`` only: host-clocked stages of one request and a
-   ``torch.profiler`` trace of two (kernel table and busy share printed,
-   trace and table written to DIR).
+9. with ``--profile DIR`` only: host-clocked stages of one request and a
+   ``torch.profiler`` trace of two requests and of two training steps
+   (kernel tables and busy shares printed, traces and tables written to
+   DIR).
 
 Exits non-zero if any phase fails, and at once where there is no card.
 The last line is ``{"ok": true, "device": {...}}``; the line before it
@@ -38,8 +55,21 @@ import torch.nn.functional as F
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 F32_FLOPS_PER_S = 67e12        # H100 SXM, f32 outside the tensor cores
 BATCH, HEIGHT, WIDTH = 8, 480, 640
-REQUESTS = 5
+REQUESTS = 3
 DCN_LAYERS_PRN50 = 13
+TRAIN_SIZE = 640            # the JAX package's training max_size
+TIMED_STEPS, TRAIN_STEPS = 6, 20
+# (H, W, Cin, stride, layers) of PRN-50's DCN inputs at 640x640.
+DCN_SHAPES_TRAIN = [
+    (160, 160, 128, 2, 1), (80, 80, 128, 1, 3),
+    (80, 80, 256, 2, 1), (40, 40, 256, 1, 5),
+    (40, 40, 512, 2, 1), (20, 20, 512, 1, 2),
+]
+# The fused dice/lava shape of a PRN-50 training step: per level P slots
+# (max_positives), K kernel channels, N instances, HW mask pixels (H/4 x
+# W/4); one forward and one backward launch per level, 4 levels.
+DICE = dict(b=8, p=128, k=128, n=32, hw=(TRAIN_SIZE // 4) ** 2)
+DICE_LEVELS = 4
 # (H, W, Cin, stride, layers of PRN-50 with this shape); Cout = Cin.
 DCN_SHAPES = [
     (120, 160, 128, 2, 1), (60, 80, 128, 1, 3),
@@ -91,10 +121,15 @@ def phase_device():
     return out[0]
 
 
-def phase_build(dcn):
-    info = dcn.build_kernel()
-    log(f"[build] {info['path']} in {info['seconds']:.1f} s")
-    log(info["log"].strip())
+def phase_build():
+    from planerecnet_tpu_torch.ops import cuda_build
+    t0 = time.perf_counter()
+    info = cuda_build.build()
+    log(f"[build] {len(info)} sources in parallel, "
+        f"{time.perf_counter() - t0:.1f} s wall")
+    for name, rec in info.items():
+        log(f"[build] {rec['path']} in {rec['seconds']:.1f} s")
+        log(rec["log"].strip())
 
 
 def dcn_inputs(h, w, cin, stride, dtype, seed):
@@ -201,6 +236,176 @@ def phase_kernel(dcn):
             records.append(rec)
     log("[kernel] shapes " + json.dumps(records))
     return records, worst
+
+
+def bound(nbytes, flops):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    f32 operations over the f32 rate."""
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / F32_FLOPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
+                                   else "operations")
+
+
+def phase_scatter():
+    """The DCN input-gradient scatter against its plain version at the six
+    PRN-50 DCN shapes at 640x640; the yardstick is aten's bilinear
+    grid-sampler input gradient over the same points, with the modulation
+    folded into its incoming gradient."""
+    from planerecnet_tpu_torch.ops import dcn
+    from planerecnet_tpu_torch.ops.dcn_scatter import (dcn_input_grad,
+                                                       dcn_input_grad_plain)
+    records, worst = [], 0.0
+    for i, (h, w, cin, stride, layers) in enumerate(DCN_SHAPES_TRAIN):
+        x, off, mask, _, _, ho, wo = dcn_inputs(h, w, cin, stride,
+                                                torch.float32, seed=20 + i)
+        idx, cw = dcn.scatter_inputs(off, mask, h, w, stride=stride)
+        g = torch.Generator(device="cuda").manual_seed(40 + i)
+        r = ho * wo * 9
+        dcols = torch.randn(BATCH, r, cin, device="cuda", generator=g)
+        got = dcn_input_grad(idx, cw, dcols, h, w)
+        want = dcn_input_grad_plain(idx, cw, dcols, h, w)
+        torch.cuda.synchronize()
+        err, ok = close_err(got, want, TOL[torch.float32])
+        name = f"{h}x{w}x{cin}/s{stride}"
+        log(f"[scatter] {name}: err {err:.3g} (tol {TOL[torch.float32]} "
+            f"of scale)")
+        if not ok:
+            raise AssertionError(f"scatter disagrees with plain at {name}")
+        worst = max(worst, err)
+        grad_out = (dcols.reshape(BATCH, ho * wo, 9, cin)
+                    * mask.reshape(BATCH, ho * wo, 9, 1)).permute(
+                        0, 3, 1, 2).contiguous()
+        grid = grid_for(off, h, w, stride, ho, wo)
+        inp = torch.empty(BATCH, cin, h, w, device="cuda")
+        ms = cuda_time_ms(lambda: dcn_input_grad(idx, cw, dcols, h, w))
+        plain_ms = cuda_time_ms(
+            lambda: dcn_input_grad_plain(idx, cw, dcols, h, w), iters=5)
+        lib_ms = cuda_time_ms(lambda: torch.ops.aten.grid_sampler_2d_backward(
+            grad_out, inp, grid, 0, 0, True, [True, False]))
+        # Count what this data needs: each row read once (corner, weights,
+        # channels), dx written once; 2 flops per channel for each corner
+        # that is in the map and has a non-zero weight.
+        adds = int((cw != 0).sum())   # zero weight: out of map or skipped
+        nbytes = (idx.numel() * 4 + cw.numel() * 4 + dcols.numel() * 4
+                  + BATCH * h * w * cin * 4)
+        b_ms, b_by = bound(nbytes, 2 * adds * cin)
+        rec = dict(shape=name, layers=layers, ms=ms, plain_ms=plain_ms,
+                   library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+                   max_abs_err=err)
+        log(f"[scatter] {name}: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"grid_sampler_2d_backward {lib_ms:.4f} ms, bound {b_ms:.4f} ms "
+            f"({b_by}), {nbytes / ms / 1e6:.1f} GB/s achieved")
+        records.append(rec)
+    return records, worst
+
+
+def dice_inputs(seed):
+    """Training-shape inputs of the fused dice/lava kernels: a quarter of
+    the slots invalid (all-zero one-hot rows)."""
+    d = DICE
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    kw = dict(device="cuda", generator=g)
+    kernels = torch.randn(d["b"], d["p"], d["k"], **kw) * 0.2
+    feat = torch.randn(d["b"], d["hw"], d["k"], **kw) * 0.2
+    inst = torch.randint(0, d["n"], (d["b"], d["p"]), **kw)
+    onehot = torch.nn.functional.one_hot(inst, d["n"]).float()
+    onehot[:, ::4] = 0
+    targets = (torch.rand(d["b"], d["n"], d["hw"], **kw) > 0.5).float()
+    grad = torch.rand(d["b"], d["hw"], **kw) * 1e-2
+    gs = [torch.randn(d["b"], d["p"], **kw) for _ in range(3)]
+    return (kernels, feat, onehot, targets, grad), gs
+
+
+def phase_dice():
+    """The fused dice/lava forward and backward kernels against their plain
+    versions at the PRN-50 training shape. No single PyTorch call computes
+    either function, so there is no library yardstick."""
+    from planerecnet_tpu_torch.ops import dice_lava as dl
+    ins, gs = dice_inputs(seed=50)
+    got = dl.dice_lava_fwd(*ins)
+    want = dl.fused_dice_lava_plain(*ins)
+    got_b = dl.dice_lava_bwd(*ins, *gs)
+    want_b = dl.fused_dice_lava_bwd_plain(*ins, *gs)
+    torch.cuda.synchronize()
+    tol = TOL[torch.float32]
+    errs = {}
+    for name, g, w in zip(("a", "b", "lava", "dk", "dm"), (*got, *got_b),
+                          (*want, *want_b)):
+        errs[name], ok = close_err(g, w, tol)
+        if not ok:
+            raise AssertionError(f"dice_lava {name} disagrees with plain: "
+                                 f"{errs[name]}")
+    log(f"[dice] errors against plain {json.dumps(errs)} (tol {tol} of "
+        f"scale)")
+    d = DICE
+    pq = d["b"] * d["p"] * d["hw"]
+    in_bytes = 4 * sum(t.numel() for t in ins)
+    out = {}
+    for name, fn, plain, flops, out_bytes in (
+            ("fwd", lambda: dl.dice_lava_fwd(*ins),
+             lambda: dl.fused_dice_lava_plain(*ins),
+             2 * pq * (d["k"] + d["n"]), 4 * 3 * d["b"] * d["p"]),
+            ("bwd", lambda: dl.dice_lava_bwd(*ins, *gs),
+             lambda: dl.fused_dice_lava_bwd_plain(*ins, *gs),
+             2 * pq * (d["k"] + d["n"]) + 2 * 2 * pq * d["k"],
+             4 * (d["b"] * d["p"] * d["k"] + d["b"] * d["hw"] * d["k"]))):
+        ms = cuda_time_ms(fn, iters=10)
+        plain_ms = cuda_time_ms(plain, iters=5)
+        extra = 4 * 3 * d["b"] * d["p"] if name == "bwd" else 0
+        b_ms, b_by = bound(in_bytes + extra + out_bytes, flops)
+        err = (max(errs["a"], errs["b"], errs["lava"]) if name == "fwd"
+               else max(errs["dk"], errs["dm"]))
+        out[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                         bound_by=b_by, flops=flops, max_abs_err=err)
+        log(f"[dice] {name} {d}: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by}; {flops / 1e9:.2f} GFLOP), "
+            f"{flops / ms / 1e9:.2f} TFLOP/s achieved")
+    return out
+
+
+def phase_dcn_grads():
+    """The DCN Function's gradients on the card against torch.autograd of
+    the plain forward: offsets crossing the border, and at integer sample
+    positions (corners of weight 0 with a non-zero offset derivative)."""
+    from planerecnet_tpu_torch.ops import dcn
+    worst = 0.0
+    for stride in (1, 2):
+        for kind in ("fractional", "integer"):
+            g = torch.Generator(device="cuda").manual_seed(60 + stride)
+            kw = dict(device="cuda", generator=g)
+            x = torch.randn(2, 9, 11, 16, **kw)
+            ho, wo = (9 - 1) // stride + 1, (11 - 1) // stride + 1
+            off = (torch.rand(2, ho, wo, 18, **kw) - 0.5) * 6
+            if kind == "integer":
+                off = off.round()
+            mask = torch.rand(2, ho, wo, 9, **kw) * 2
+            wt = torch.randn(3, 3, 16, 8, **kw) * 0.2
+            bias = torch.randn(8, **kw)
+            cot = torch.randn(2, ho, wo, 8, **kw)
+            geom = dict(stride=stride, padding=1, kernel_size=3)
+
+            def grads(fn):
+                args = [t.clone().requires_grad_(True)
+                        for t in (x, off, mask, wt, bias)]
+                (fn(*args) * cot).sum().backward()
+                return [a.grad for a in args]
+
+            got = grads(lambda *a: dcn.deform_conv2d(*a, **geom))
+            want = grads(lambda xx, o, m, ww, bb: (
+                dcn.deform_im2col_plain(xx, o, m, **geom)
+                @ ww.reshape(-1, 8) + bb).reshape(2, ho, wo, 8))
+            for name, a, b in zip(("x", "offset", "mask", "weight", "bias"),
+                                  got, want):
+                e, ok = close_err(a, b, 1e-5)
+                if not ok or float(a.abs().max()) == 0:
+                    raise AssertionError(f"DCN d{name} on the card: err {e}, "
+                                         f"max {float(a.abs().max())}")
+                worst = max(worst, e)
+    log(f"[dcn-grad] x, offset, mask, weight, bias gradients agree with "
+        f"autograd of the plain forward, stride 1 and 2, fractional and "
+        f"integer offsets: worst err {worst:.3g} (tol 1e-5 of scale)")
+    return worst
 
 
 def perturb_(model, seed, offset_std=0.01):
@@ -335,11 +540,168 @@ def phase_cpu_vs_gpu(runner, cfg):
         f"{frac:.2e}; raw errs {json.dumps(errs)}")
 
 
+def synthetic_batch(b, size, n_cap, seed):
+    """A fixed training batch in the JAX package's layout, made with numpy
+    from ``seed``: per image 3 to 5 axis-aligned rectangles as plane masks
+    (later ones drawn over earlier ones), their boxes, unit plane normals
+    facing the camera, and the depth of those planes (a tilted background
+    plane elsewhere) under a pinhole camera with f = size * 0.8."""
+    rng = np.random.RandomState(seed)
+    f, c = size * 0.8, size / 2
+    k = np.array([[f, 0, c], [0, f, c], [0, 0, 1]], np.float32)
+    vv, uu = np.mgrid[0:size, 0:size].astype(np.float64)
+    rays = np.stack([(uu - c) / f, (vv - c) / f, np.ones_like(uu)], -1)
+    batch = {"image": rng.randint(0, 256, (b, size, size, 3)).astype(np.uint8),
+             "depth": np.zeros((b, size, size, 1), np.float32),
+             "masks": np.zeros((b, n_cap, size, size), np.uint8),
+             "boxes": np.zeros((b, n_cap, 4), np.float32),
+             "classes": np.zeros((b, n_cap), np.int32),
+             "gt_valid": np.zeros((b, n_cap), bool),
+             "plane_paras": np.zeros((b, n_cap, 4), np.float32),
+             "k_matrix": np.tile(k, (b, 1, 1))}
+    for i in range(b):
+        depth = 4.0 + 0.5 * rays[..., 0]             # background
+        for j in range(min(rng.randint(3, 6), n_cap)):
+            y0, x0 = rng.randint(0, size * 3 // 4, 2)
+            hh, ww = rng.randint(size // 8, size // 3, 2)
+            y1, x1 = min(size, y0 + hh), min(size, x0 + ww)
+            normal = rng.randn(3) * [0.3, 0.3, 0.0] + [0.0, 0.0, -1.0]
+            normal /= np.linalg.norm(normal)
+            dist = rng.uniform(1.0, 3.0)
+            region = np.zeros((size, size), bool)
+            region[y0:y1, x0:x1] = True
+            # n . X = -dist with X = depth * ray, on the rectangle.
+            depth[region] = -dist / (rays[region] @ normal)
+            batch["masks"][i, :j][:, region] = 0
+            batch["masks"][i, j][region] = 1
+            batch["boxes"][i, j] = [x0, y0, x1, y1]
+            batch["classes"][i, j] = 1
+            batch["gt_valid"][i, j] = True
+            batch["plane_paras"][i, j] = [*normal, dist]
+        batch["depth"][i, ..., 0] = np.clip(depth, 0.3, 20.0)
+    return batch
+
+
+def phase_train(cfg, card):
+    """The training main path: PRN-50 at batch 8, 640x640, f32, all five
+    losses, seeded perturbed weights, one fixed batch. Returns the state,
+    the batch and the launch counts of the timed steps."""
+    from planerecnet_tpu_torch import trainer
+    from planerecnet_tpu_torch.ops import dcn, dcn_scatter, dice_lava
+    counters = {"dcn_im2col": dcn.deform_im2col,
+                "dcn_scatter": dcn_scatter.dcn_input_grad,
+                "dice_lava_fwd": dice_lava.dice_lava_fwd,
+                "dice_lava_bwd": dice_lava.dice_lava_bwd}
+    per_step = {"dcn_im2col": 2 * DCN_LAYERS_PRN50,
+                "dcn_scatter": DCN_LAYERS_PRN50,
+                "dice_lava_fwd": DICE_LEVELS, "dice_lava_bwd": DICE_LEVELS}
+    state = trainer.create_train_state(cfg, seed=0, device="cuda")
+    perturb_(state.model, seed=1)
+    p0 = [p.detach().clone() for p in state.model.parameters()]
+    batch = synthetic_batch(BATCH, TRAIN_SIZE, cfg.max_instances, seed=3)
+    first = trainer.train_step(state, batch)                     # warm-up
+    totals = [float(first["total"])]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    for fn in counters.values():
+        fn.launches = 0
+    times = []
+    for _ in range(TIMED_STEPS):
+        t0 = time.perf_counter()
+        losses = trainer.train_step(state, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        totals.append(float(losses["total"]))
+        for key, v in losses.items():
+            if not torch.isfinite(v):
+                raise AssertionError(f"training loss {key} is {float(v)}")
+    launches = {k: fn.launches for k, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for k, n in launches.items():
+        if n != per_step[k] * TIMED_STEPS:
+            raise AssertionError(f"{k}: {n} launches in {TIMED_STEPS} steps, "
+                                 f"expected {per_step[k]} per step")
+    for _ in range(TRAIN_STEPS - 1 - TIMED_STEPS):
+        totals.append(float(trainer.train_step(state, batch)["total"]))
+    moved = max(float((p.detach() - q).abs().max())
+                for p, q in zip(state.model.parameters(), p0))
+    if not all(np.isfinite(totals)) or moved == 0:
+        raise AssertionError(f"training: totals {totals}, moved {moved}")
+    if not totals[-1] < totals[0]:
+        raise AssertionError(f"the loss did not fall: {totals}")
+    ms = float(np.median(times))
+    log(f"[train] PRN-50 {BATCH}x{TRAIN_SIZE}x{TRAIN_SIZE} f32, all five "
+        f"losses: per step {[round(t, 3) for t in times]} ms; median "
+        f"{ms:.3f} ms/step, {BATCH / ms * 1e3:.2f} img/s; peak memory "
+        f"{peak:.2f} GiB; cudnn.allow_tf32={torch.backends.cudnn.allow_tf32},"
+        f" matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}; {card}")
+    for when, ls in (("first", first), ("last timed", losses)):
+        log(f"[train] losses of the {when} step "
+            f"{json.dumps({k: float(v) for k, v in ls.items()})}")
+    log(f"[train] total loss over {len(totals)} steps "
+        f"{[round(t, 4) for t in totals]}; largest weight change {moved:.3g}")
+    log(f"[train] launches over {TIMED_STEPS} steps {json.dumps(launches)}")
+    return state, batch, launches, ms, peak
+
+
+def phase_train_cpu_vs_gpu():
+    """One step of the tiny preset on the same weights, batch and VNL
+    indices, on the CPU (plain versions) and on the card (kernels), TF32
+    off: the losses and the gradients in the JAX layout."""
+    from planerecnet_tpu_torch import trainer
+    from planerecnet_tpu_torch.config import PlaneRecNet_tiny_config
+    from planerecnet_tpu_torch.losses import sample_vnl_indices
+    from planerecnet_tpu_torch.utils.weights import to_jax_variables
+    cfg = PlaneRecNet_tiny_config.copy(dict(freeze_bn=True))
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    batch = synthetic_batch(2, 128, cfg.max_instances, seed=5)
+    masks = torch.from_numpy(batch["masks"]).bool()
+    valid = torch.from_numpy(batch["gt_valid"])
+    order = torch.argsort((~valid).int(), dim=1, stable=True)
+    idx = sample_vnl_indices(
+        torch.Generator().manual_seed(6),
+        masks[torch.arange(2)[:, None], order[:, :cfg.vnl_max_planes]],
+        (~(masks & valid[:, :, None, None]).any(1)).reshape(2, -1),
+        cfg.vnl_samples)
+    out = {}
+    for device in ("cpu", "cuda"):
+        state = trainer.create_train_state(cfg, seed=7, device=device)
+        perturb_(state.model, seed=8, offset_std=0.1)
+        losses, _ = trainer.grad_step(
+            state, batch, {k: v.to(device) for k, v in idx.items()})
+        out[device] = ({k: float(v) for k, v in losses.items()},
+                       to_jax_variables({n: p.grad for n, p in
+                                         state.model.named_parameters()}))
+    (torch.backends.cudnn.allow_tf32,
+     torch.backends.cuda.matmul.allow_tf32) = tf32
+    (lc, gc), (lg, gg) = out["cpu"], out["cuda"]
+    for key in lc:
+        if abs(lc[key] - lg[key]) > 1e-4 * abs(lc[key]) + 1e-6:
+            raise AssertionError(f"training loss {key}: CPU {lc[key]}, "
+                                 f"GPU {lg[key]}")
+    errs = sorted(float(np.abs(gg[k] - v).max() / max(np.abs(v).max(), 1e-12))
+                  for k, v in gc.items() if np.abs(v).max() > 1e-6)
+    # f32 on both, summed in other orders (cuDNN against oneDNN
+    # convolutions, atomics in the scatter and dice kernels); a ReLU input
+    # within rounding of 0 may flip and move one leaf by a few percent.
+    med, p95 = float(np.median(errs)), float(np.quantile(errs, 0.95))
+    if med > 1e-4 or p95 > 1e-3:
+        raise AssertionError(f"gradients CPU vs GPU: median {med}, 95th "
+                             f"percentile {p95} of the leaf scale")
+    log(f"[train-cpu-vs-gpu] tiny preset, 2x128x128, TF32 off: losses "
+        f"agree {json.dumps({k: [lc[k], lg[k]] for k in lc})}; gradients "
+        f"of {len(errs)} leaves: median err {med:.3g}, 95th percentile "
+        f"{p95:.3g}, max {errs[-1]:.3g} of the leaf scale")
+
+
 def phase_profile(runner, out_dir):
     """Where one request's time goes: host-clocked stages, then a
     ``torch.profiler`` trace of two requests (device time by kernel, the
     device's busy share of the wall time)."""
-    import os
     from torch.profiler import ProfilerActivity, profile
     from planerecnet_tpu_torch.ops.image import fast_base_transform
     from planerecnet_tpu_torch.ops.postprocess import postprocess_batch
@@ -371,30 +733,75 @@ def phase_profile(runner, out_dir):
             runner.infer(batch)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    profile_table(prof, n, "requests", out_dir, "request", wall_ms)
+
+
+def profile_table(prof, n, what, out_dir, stem, wall_ms):
+    """Print and save the device time by kernel of ``n`` profiled runs."""
+    import os
     kernels = [e for e in prof.key_averages()
                if e.device_type.name == "CUDA"]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     if busy_ms == 0:
-        log("[profile] the profiler recorded no device time; only the "
-            "host-clocked stages above are measured")
+        log(f"[profile] the profiler recorded no device time for {what}")
         return
     kernels.sort(key=lambda e: -e.self_device_time_total)
     rows = [{"kernel": e.key[:90], "calls": e.count // n,
-             "ms_per_request": e.self_device_time_total / 1e3 / n,
+             f"ms_per_{stem}": e.self_device_time_total / 1e3 / n,
              "share": e.self_device_time_total / 1e3 / busy_ms}
             for e in kernels]
-    log(f"[profile] {n} requests: wall {wall_ms / n:.3f} ms/request, device "
-        f"busy {busy_ms / n:.3f} ms/request, idle share "
+    log(f"[profile] {n} {what}: wall {wall_ms / n:.3f} ms/{stem}, device "
+        f"busy {busy_ms / n:.3f} ms/{stem}, idle share "
         f"{1 - busy_ms / wall_ms:.3f}")
-    for r in rows[:25]:
-        log(f"[profile] {r['ms_per_request']:9.3f} ms {r['share']:6.1%} "
+    for r in rows[:30]:
+        log(f"[profile] {r[f'ms_per_{stem}']:9.3f} ms {r['share']:6.1%} "
             f"x{r['calls']:<4d} {r['kernel']}")
     os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, "profile_kernels.json"), "w") as f:
-        json.dump({"wall_ms_per_request": wall_ms / n,
-                   "busy_ms_per_request": busy_ms / n, "kernels": rows}, f,
+    with open(os.path.join(out_dir, f"profile_{stem}_kernels.json"), "w") as f:
+        json.dump({f"wall_ms_per_{stem}": wall_ms / n,
+                   f"busy_ms_per_{stem}": busy_ms / n, "kernels": rows}, f,
                   indent=1)
-    prof.export_chrome_trace(os.path.join(out_dir, "profile_trace.json"))
+    prof.export_chrome_trace(os.path.join(out_dir, f"profile_{stem}.json"))
+
+
+def phase_profile_train(state, batch, out_dir):
+    """Host-clocked stages of one training step, then a ``torch.profiler``
+    trace of two steps."""
+    from torch.profiler import ProfilerActivity, profile
+    from planerecnet_tpu_torch import trainer
+    stages = {"unpack": [], "forward+loss": [], "backward": [], "adam": []}
+    for _ in range(3):
+        t0 = time.perf_counter()
+        dense = trainer.unpack_wire_batch(state.cfg, batch, state.device)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        saved = [b.clone() for b in trainer._bn_buffers(state.model)]
+        state.optimizer.zero_grad(set_to_none=True)
+        preds = state.model(dense["image"])
+        losses = trainer.compute_losses(state.cfg, preds, dense,
+                                        generator=state.generator())
+        total = sum(losses.values())
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        total.backward()
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        trainer.apply_grads(state, total.detach(), saved)
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        for key, dt in zip(stages, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
+            stages[key].append(dt * 1e3)
+    log("[profile] training step, host-clocked stages, ms (median of 3): "
+        + json.dumps({k: float(np.median(v)) for k, v in stages.items()}))
+    n = 2
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            trainer.train_step(state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    profile_table(prof, n, "training steps", out_dir, "step", wall_ms)
 
 
 def main():
@@ -406,38 +813,96 @@ def main():
     from planerecnet_tpu_torch.ops import dcn
 
     card = phase_device()
-    phase_build(dcn)
+    phase_build()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     records, worst = phase_kernel(dcn)
+    scatter, scatter_err = phase_scatter()
+    dice = phase_dice()
+    phase_dcn_grads()
     torch.backends.cudnn.allow_tf32 = True      # PyTorch's default
-    runner, launches, _ = phase_main(dcn, PlaneRecNet_50_config, card)
+    runner, infer_launches, _ = phase_main(dcn, PlaneRecNet_50_config, card)
     phase_cpu_vs_gpu(runner, PlaneRecNet_50_config)
+    del runner
+    # The preset's schedule without its 2000-update warm-up, so that 20
+    # steps on one batch show the loss falling.
+    train_cfg = PlaneRecNet_50_config.copy(dict(lr_warmup_until=0))
+    state, batch, launches, _, _ = phase_train(train_cfg, card)
+    phase_train_cpu_vs_gpu()
     if "--profile" in sys.argv:
-        phase_profile(runner, sys.argv[sys.argv.index("--profile") + 1])
+        out_dir = sys.argv[sys.argv.index("--profile") + 1]
+        phase_profile_train(state, batch, out_dir)
+        from planerecnet_tpu_torch.runner import PlaneRecNetRunner
+        runner = PlaneRecNetRunner(PlaneRecNet_50_config, device="cuda")
+        perturb_(runner.model, seed=1)
+        phase_profile(runner, out_dir)
 
-    def per_request(key):
-        return sum(r[key] * r["layers"] for r in records)
+    def total(recs, key):
+        return sum(r[key] * r["layers"] for r in recs)
 
+    def bound_by(recs):
+        return ("bytes" if all(r["bound_by"] == "bytes" for r in recs)
+                else "operations")
+
+    train_per = (f"one training step of PRN-50 at batch {BATCH}, "
+                 f"{TRAIN_SIZE}x{TRAIN_SIZE}, f32")
+    dice_rows = [{
+        "name": f"dice_lava_{d}",
+        "route": "cuda",
+        "source": "planerecnet_tpu_torch/csrc/dice_lava.cu",
+        "replaces": ("planerecnet_tpu/ops/pallas/dice_lava.py:158 "
+                     "(_fused_fwd_impl, kernel _fwd_kernel :49)"
+                     if d == "fwd" else
+                     "planerecnet_tpu/ops/pallas/dice_lava.py:203 "
+                     "(_fused_bwd, kernel _bwd_kernel :80)"),
+        "launches": launches[f"dice_lava_{d}"],
+        "max_abs_err": dice[d]["max_abs_err"],
+        "ms": DICE_LEVELS * dice[d]["ms"],
+        "plain_ms": DICE_LEVELS * dice[d]["plain_ms"],
+        "bound_ms": DICE_LEVELS * dice[d]["bound_ms"],
+        "bound_by": dice[d]["bound_by"],
+        "library_ms": None,
+        "library": "none: no single PyTorch call computes it",
+        "per": f"{train_per}: {DICE_LEVELS} launches at {DICE}",
+        "card": card,
+    } for d in ("fwd", "bwd")]
     print(json.dumps({"kernels": [{
         "name": "dcn_im2col",
         "route": "cuda",
         "source": "planerecnet_tpu_torch/csrc/dcn_im2col.cu",
         "replaces": "planerecnet_tpu/ops/dcn.py:544 (deform_conv2d; "
                     "sampling at :212-242, modulation at :311-316)",
-        "launches": launches,
+        "launches": launches["dcn_im2col"],
+        "launches_by_path": {"infer": infer_launches,
+                             "train": launches["dcn_im2col"]},
         "max_abs_err": worst,
-        "ms": per_request("ms"),
-        "kernel_ms": per_request("ms"),
-        "plain_ms": per_request("plain_ms"),
-        "bound_ms": per_request("bound_ms"),
-        "bound_by": "bytes" if all(r["bound_by"] == "bytes"
-                                   for r in records) else "operations",
-        "library_ms": per_request("library_ms"),
-        "per": f"one request: the {DCN_LAYERS_PRN50} PRN-50 DCN layers at "
-               f"batch {BATCH}, {HEIGHT}x{WIDTH}, f32",
+        "ms": total(records, "ms"),
+        "plain_ms": total(records, "plain_ms"),
+        "bound_ms": total(records, "bound_ms"),
+        "bound_by": bound_by(records),
+        "library_ms": total(records, "library_ms"),
+        "per": f"times: one request, the {DCN_LAYERS_PRN50} PRN-50 DCN "
+               f"layers at batch {BATCH}, {HEIGHT}x{WIDTH}, f32; launches: "
+               f"{TIMED_STEPS} training steps (and {REQUESTS} requests)",
         "card": card,
-    }]}), flush=True)
+    }, {
+        "name": "dcn_scatter",
+        "route": "cuda",
+        "source": "planerecnet_tpu_torch/csrc/dcn_scatter.cu",
+        "replaces": "planerecnet_tpu/ops/pallas/dcn_scatter.py:117 "
+                    "(dcn_input_grad_pallas, kernel _make_kernel :43)",
+        "launches": launches["dcn_scatter"],
+        "max_abs_err": scatter_err,
+        "ms": total(scatter, "ms"),
+        "plain_ms": total(scatter, "plain_ms"),
+        "bound_ms": total(scatter, "bound_ms"),
+        "bound_by": bound_by(scatter),
+        "library_ms": total(scatter, "library_ms"),
+        "library": "torch.ops.aten.grid_sampler_2d_backward (bilinear, "
+                   "zeros, align_corners=True, input gradient only)",
+        "per": f"{train_per}: its {DCN_LAYERS_PRN50} DCN layers",
+        "card": card,
+    }, *dice_rows]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,11 +1,10 @@
-"""Immutable configuration of the inference path.
+"""Immutable configuration of the inference and training paths.
 
 Frozen dataclasses with the JAX package's field names and preset values
 (``planerecnet_tpu/config.py``: ``PlaneRecNet_base/101/50/tiny_config``)
-for the fields inference reads, so a preset means the same model in both
-packages. This is a copy, not an import: the port depends on nothing of
-the JAX package. Training fields (schedule, loss weights, dataset) come
-with the training slice.
+for the fields the port reads, so a preset means the same model and the
+same training recipe in both packages. This is a copy, not an import: the
+port depends on nothing of the JAX package.
 
 ``compute_dtype="auto"`` resolves to float32 here; ``"bfloat16"`` is taken
 when it is set explicitly.
@@ -33,6 +32,28 @@ class _FrozenBase:
         """A copy with the fields in ``overrides`` replaced."""
         overrides = {k: _tup(v) for k, v in (overrides or {}).items()}
         return replace(self, **overrides)
+
+
+@dataclass(frozen=True)
+class DatasetConfig(_FrozenBase):
+    """What the losses read of a dataset preset. The names are the JAX
+    package's (and the reference's): the loss's "ScanNet" branch tests a
+    name no preset has, so it never fires, in either package."""
+
+    name: str = "PlaneAnnoDataset"
+    # Depth png value -> metres.
+    depth_resolution: Optional[float] = None
+    min_depth: Optional[float] = None
+
+
+dataset_base = DatasetConfig()
+scannet_dataset = dataset_base.copy(dict(
+    name="ScanNetDataset", depth_resolution=1 / 1000, min_depth=1 / 1000))
+nyu_eval = dataset_base.copy(dict(
+    name="NYUDataset", min_depth=1 / 1000,
+    depth_resolution=1 / 65535.0 * 9.99547))
+S2D3DS_dataset = dataset_base.copy(dict(
+    name="S2D3DSDataset", depth_resolution=1 / 512, min_depth=1 / 512))
 
 
 @dataclass(frozen=True)
@@ -83,8 +104,13 @@ class SOLOv2Config(_FrozenBase):
     num_masks: int = 256
     instance_channels: int = 512
     fpn_instance_strides: Tuple[int, ...] = (8, 8, 16, 32, 32)
+    # Per level, the range of sqrt(box area) in input pixels that the
+    # level is assigned, and the centre-region shrink of the assignment.
+    fpn_scale_ranges: Tuple[Tuple[int, int], ...] = (
+        (1, 96), (48, 192), (96, 384), (192, 768), (384, 2048))
     num_grids: Tuple[int, ...] = (40, 36, 24, 16, 12)
     num_instance_convs: int = 4
+    sigma: float = 0.2
     use_dcn_in_instance: bool = False
     nms_pre: int = 500
     score_thr: float = 0.1
@@ -109,6 +135,7 @@ solov2_light = SOLOv2Config(
     num_masks=128,
     instance_channels=256,
     fpn_instance_strides=(8, 8, 16, 32),
+    fpn_scale_ranges=((1, 128), (64, 256), (128, 512), (256, 2048)),
     num_grids=(40, 36, 24, 16),
     num_instance_convs=3,
 )
@@ -117,7 +144,46 @@ solov2_light = SOLOv2Config(
 @dataclass(frozen=True)
 class PlaneRecNetConfig(_FrozenBase):
     name: str = "PlaneRecNet_base"
+    dataset: DatasetConfig = scannet_dataset
     num_classes: int = 2   # background + "plane"
+
+    # Training schedule: linear warm-up from ``lr_warmup_init`` to ``lr``
+    # over ``lr_warmup_until`` updates, then ``lr * gamma**k`` after the
+    # k-th of ``lr_steps``.
+    max_iter: int = 125000
+    lr_steps: Tuple[int, ...] = (62500, 100000)
+    lr: float = 1e-4
+    lr_warmup_init: float = 1e-6
+    lr_warmup_until: int = 2000
+    gamma: float = 0.1
+    # Every BatchNorm uses its running statistics in training too.
+    freeze_bn: bool = False
+
+    # Loss weights and switches.
+    dice_weight: float = 3.0
+    focal_weight: float = 1.0
+    depth_weight: float = 5.0
+    use_lava_loss: bool = False
+    use_plane_loss: bool = False
+    lava_weight: float = 0.5
+    pln_weight: float = 1.0
+    focal_gamma: float = 2.0
+    focal_alpha: float = 0.25
+
+    # Fixed capacities of the loss: GT instances per image, positive
+    # (cell, instance) slots per image and level, VNL triplets per plane,
+    # and the planes per image the VNL loss samples (valid ones first).
+    max_instances: int = 32
+    max_positives: int = 128
+    vnl_samples: int = 512
+    vnl_max_planes: int = 16
+
+    # The JAX package's switch between its Pallas loss kernel and the
+    # unfused XLA composition. Kept for preset parity: the port always
+    # takes the fused formulation (``ops/dice_lava.py``), the kernel on
+    # the card and its plain version on the CPU.
+    fused_loss_kernel: str = "auto"
+
     backbone: BackboneConfig = resnet101_backbone.copy(
         dict(selected_layers=tuple(range(2, 4))))
     fpn: FPNConfig = fpn_base.copy(dict(start_level=0,
@@ -136,6 +202,10 @@ PlaneRecNet_101_config = PlaneRecNet_base_config.copy(dict(
         dict(selected_layers=tuple(range(2, 4)))),
     fpn=fpn_base.copy(dict(start_level=0, high_level_mode=None)),
     solov2=solov2_light,
+    use_lava_loss=True,
+    use_plane_loss=True,
+    lava_weight=1.0,
+    pln_weight=1.0,
 ))
 
 PlaneRecNet_50_config = PlaneRecNet_101_config.copy(dict(
@@ -156,6 +226,7 @@ PlaneRecNet_tiny_config = PlaneRecNet_50_config.copy(dict(
         instance_channels=32, num_instance_convs=1,
         num_grids=(8, 8, 4, 4),
         nms_pre=16, top_k=8, max_candidates=32)),
+    max_instances=4, max_positives=16, vnl_samples=32,
 ))
 
 

@@ -1,7 +1,11 @@
 """Shared building blocks (counterpart of ``planerecnet_tpu/models/layers.py``).
 
-The JAX package's ``TorchBatchNorm`` is torch's ``nn.BatchNorm2d``; in eval
-mode both compute ``(x - mean) * rsqrt(var + eps) * weight + bias``.
+The JAX package's ``TorchBatchNorm`` is torch's ``nn.BatchNorm2d``. In eval
+mode both compute ``(x - mean) * rsqrt(var + eps) * weight + bias`` with the
+running statistics. In train mode both normalise with the batch's biased
+variance and update the running variance with the Bessel-corrected one;
+torch's ``momentum`` is one minus flax's (0.1 in the backbone, 0.01 in the
+depth decoder).
 """
 
 from __future__ import annotations

@@ -77,6 +77,17 @@ class PlaneRecNet(nn.Module):
                     nn.init.zeros_(conv.weight)
                     nn.init.zeros_(conv.bias)
 
+    def train(self, mode: bool = True) -> "PlaneRecNet":
+        """Train mode; with ``cfg.freeze_bn`` every BatchNorm, backbone and
+        depth decoder alike, keeps using and keeping its running
+        statistics."""
+        super().train(mode)
+        if mode and self.cfg.freeze_bn:
+            for m in self.modules():
+                if isinstance(m, nn.BatchNorm2d):
+                    m.eval()
+        return self
+
     def forward(self, x: torch.Tensor) -> Dict:
         cfg = self.cfg
         with torch.autocast(x.device.type, dtype=torch.bfloat16,

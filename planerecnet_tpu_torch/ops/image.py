@@ -1,4 +1,4 @@
-"""Image ops of the inference path: resize, pad, normalise, coord grids.
+"""Image ops: resize (and its matrix), pad, normalise, coord grids.
 
 Counterpart of ``planerecnet_tpu/ops/image.py``. The model runs NCHW inside,
 so the resize and pad ops here take NCHW tensors; ``fast_base_transform``
@@ -18,26 +18,48 @@ import torch.nn.functional as F
 from planerecnet_tpu_torch.config import MEANS, STD
 
 
-@functools.lru_cache(maxsize=256)
-def _resize_taps(in_size: int, out_size: int, device: torch.device):
-    """Per output index: the two source indices and their weights.
-
-    Half-pixel source position clamped to [0, in-1], computed in float64
-    and rounded to f32 once, as the JAX package builds its resize matrix
-    (``F.interpolate`` computes the position in f32, which at a source
-    index near 60 is off by up to 4e-6).
-    """
+def _source_taps(in_size: int, out_size: int):
+    """Per output index: the two source indices and, in float64, the
+    fraction of the second. Half-pixel source position clamped to
+    [0, in-1], as the JAX package builds its resize matrix."""
     src = (np.arange(out_size, dtype=np.float64) + 0.5) * (
         in_size / out_size) - 0.5
     src = np.clip(src, 0.0, in_size - 1)
     lo = np.floor(src).astype(np.int64)
     hi = np.minimum(lo + 1, in_size - 1)
-    frac = src - lo
+    return lo, hi, src - lo
+
+
+@functools.lru_cache(maxsize=256)
+def _resize_taps(in_size: int, out_size: int, device: torch.device):
+    """Per output index: the two source indices and their weights.
+
+    The positions are computed in float64 and rounded to f32 once
+    (``F.interpolate`` computes the position in f32, which at a source
+    index near 60 is off by up to 4e-6).
+    """
+    lo, hi, frac = _source_taps(in_size, out_size)
     same = lo == hi   # clamped to the last row: one tap of weight 1
     w_lo = np.where(same, 1.0, 1.0 - frac).astype(np.float32)
     w_hi = np.where(same, 0.0, frac).astype(np.float32)
     return tuple(torch.from_numpy(a).to(device)
                  for a in (lo, hi, w_lo, w_hi))
+
+
+def _resize_weights(in_size: int, out_size: int,
+                    device=None) -> torch.Tensor:
+    """Dense (in, out) f32 bilinear interpolation matrix of the resize from
+    ``in_size`` to ``out_size``: column j holds output j's two taps (the
+    identity when the sizes are equal). Counterpart of the JAX package's
+    ``ops/image.py::_resize_weights``, from the same float64 positions."""
+    if in_size == out_size:
+        return torch.eye(in_size, device=device)
+    lo, hi, frac = _source_taps(in_size, out_size)
+    w = np.zeros((in_size, out_size), np.float64)
+    cols = np.arange(out_size)
+    np.add.at(w, (lo, cols), 1.0 - frac)
+    np.add.at(w, (hi, cols), frac)
+    return torch.from_numpy(w.astype(np.float32)).to(device)
 
 
 def _resize_axis(x: torch.Tensor, dim: int, out_size: int) -> torch.Tensor:

@@ -1,0 +1,198 @@
+"""Training state, optimizer, learning-rate schedule and the train step.
+
+Counterpart of ``planerecnet_tpu/trainer.py``. One step is: unpack the wire
+batch onto the device, forward in train mode, the joint loss
+(``losses.compute_losses``), backward, and Adam, skipped when the total
+loss is not finite. Runs on ``cuda`` unless ``device="cpu"`` is passed.
+
+Two things follow the JAX package exactly:
+* The learning rate follows the count of APPLIED updates (optax's own
+  count, which a skipped step does not advance), while ``state.step``
+  counts every step and seeds the step's random numbers.
+* A skipped step leaves the parameters, Adam's moments and the BatchNorm
+  running statistics as they were. torch updates the running statistics
+  during the forward, so they are saved before it and put back.
+
+The optimizer is Adam (0.9, 0.999, eps 1e-8) without weight decay (the JAX
+optimizer ignores ``cfg.decay``); ``per_module_lr`` gives the backbone 5x
+and the depth decoder 2x the learning rate.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, Dict, List, Mapping, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from planerecnet_tpu_torch.config import PlaneRecNetConfig
+from planerecnet_tpu_torch.losses import compute_losses
+from planerecnet_tpu_torch.models.planerecnet import PlaneRecNet
+from planerecnet_tpu_torch.ops.image import fast_base_transform
+from planerecnet_tpu_torch.runner import resolve_device
+from planerecnet_tpu_torch.utils.weights import (flatten_variables,
+                                                 from_jax_variables)
+
+# Learning-rate multipliers of ``per_module_lr`` by top-level module.
+MODULE_LR = {"backbone": 5.0, "depth_decoder": 2.0}
+
+
+def lr_schedule(cfg: PlaneRecNetConfig) -> Callable[[int], float]:
+    """Linear warm-up, then step decay, as a function of the update count."""
+    lr = cfg.lr
+
+    def schedule(it: int) -> float:
+        if cfg.lr_warmup_until > 0 and it <= cfg.lr_warmup_until:
+            return ((lr - cfg.lr_warmup_init) * (it / cfg.lr_warmup_until)
+                    + cfg.lr_warmup_init)
+        return lr * cfg.gamma ** sum(it >= s for s in cfg.lr_steps)
+
+    return schedule
+
+
+def make_optimizer(model: nn.Module, per_module_lr: bool = False
+                   ) -> torch.optim.Adam:
+    """Adam over the model's parameters, one group per lr multiplier; each
+    group's ``lr_mult`` scales the scheduled learning rate."""
+    groups: Dict[float, List[torch.Tensor]] = {}
+    for name, p in model.named_parameters():
+        mult = MODULE_LR.get(name.split(".", 1)[0], 1.0) if per_module_lr \
+            else 1.0
+        groups.setdefault(mult, []).append(p)
+    return torch.optim.Adam(
+        [{"params": ps, "lr_mult": m} for m, ps in groups.items()],
+        lr=0.0, betas=(0.9, 0.999), eps=1e-8, weight_decay=0.0)
+
+
+@dataclass
+class TrainState:
+    cfg: PlaneRecNetConfig
+    model: PlaneRecNet
+    optimizer: torch.optim.Adam
+    schedule: Callable[[int], float]
+    seed: int = 0
+    step: int = 0        # every step taken
+    updates: int = 0     # the steps whose update was applied
+
+    @property
+    def device(self) -> torch.device:
+        return next(self.model.parameters()).device
+
+    def generator(self) -> torch.Generator:
+        """This step's random numbers (the VNL sampler's)."""
+        return torch.Generator(self.device).manual_seed(
+            self.seed * 1_000_003 + self.step)
+
+
+def create_train_state(cfg: PlaneRecNetConfig,
+                       variables: Optional[Mapping] = None, seed: int = 0,
+                       device="cuda", per_module_lr: bool = False
+                       ) -> TrainState:
+    """A model in train mode (fresh weights from ``seed``, or the JAX
+    package's ``variables``, nested or flat), its optimizer and schedule."""
+    device = resolve_device(device)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        model = PlaneRecNet(cfg)
+    if variables is not None:
+        model.load_state_dict(
+            from_jax_variables(flatten_variables(variables), model))
+    model = model.to(device).train()
+    return TrainState(cfg, model, make_optimizer(model, per_module_lr),
+                      lr_schedule(cfg), seed=seed)
+
+
+def densify_sparse_masks(cfg: PlaneRecNetConfig, batch: Dict) -> Dict:
+    """Expand the valid-slot mask wire (``masks_sparse`` (M, H, W/8) rows
+    and ``mask_slots`` (M,) flat (image, slot) ids; padding rows carry an
+    out-of-range id) into ``masks_packed`` (B, max_instances, H, W/8)."""
+    if "masks_sparse" not in batch:
+        return batch
+    batch = dict(batch)
+    sparse = batch.pop("masks_sparse")
+    slots = batch.pop("mask_slots").long()
+    b = batch["image"].shape[0]
+    n_cap = cfg.max_instances
+    dense = torch.zeros((b * n_cap,) + tuple(sparse.shape[1:]),
+                        dtype=sparse.dtype, device=sparse.device)
+    keep = slots < b * n_cap
+    dense[slots[keep]] = sparse[keep]
+    batch["masks_packed"] = dense.reshape(b, n_cap, *sparse.shape[1:])
+    return batch
+
+
+def unpack_wire_batch(cfg: PlaneRecNetConfig, batch: Mapping,
+                      device) -> Dict[str, torch.Tensor]:
+    """The JAX package's wire batch (numpy or tensors) -> the dense batch of
+    ``compute_losses`` on ``device``: masks unpacked from bits (sparse or
+    dense wire), ``depth_q`` scaled by ``depth_resolution``, u8 BGR images
+    normalised (every preset's transform: ImageNet statistics, to RGB). A
+    dense batch passes through."""
+    batch = {k: torch.as_tensor(np.asarray(v) if not isinstance(
+        v, torch.Tensor) else v).to(device) for k, v in batch.items()}
+    batch = densify_sparse_masks(cfg, batch)
+    if "masks_packed" in batch:
+        packed = batch.pop("masks_packed")                # (B, N, H, W/8)
+        shifts = torch.arange(7, -1, -1, dtype=torch.uint8, device=device)
+        bits = (packed[..., None] >> shifts) & 1
+        w = batch["image"].shape[2]
+        batch["masks"] = bits.reshape(*packed.shape[:-1],
+                                      packed.shape[-1] * 8)[..., :w]
+    if "depth_q" in batch:
+        res = cfg.dataset.depth_resolution or 1e-3
+        batch["depth"] = batch.pop("depth_q").float() * res
+    if batch["image"].dtype == torch.uint8:
+        batch["image"] = fast_base_transform(batch["image"])
+    return batch
+
+
+def _bn_buffers(model: nn.Module) -> List[torch.Tensor]:
+    return [buf for m in model.modules() if isinstance(m, nn.BatchNorm2d)
+            for buf in (m.running_mean, m.running_var, m.num_batches_tracked)]
+
+
+def grad_step(state: TrainState, batch: Mapping,
+              vnl_indices: Optional[Dict[str, torch.Tensor]] = None):
+    """Forward, joint loss and backward; the gradients are left in the
+    parameters' ``.grad``. Returns (the detached losses with ``total``, the
+    BatchNorm running statistics as they were before the forward)."""
+    batch = unpack_wire_batch(state.cfg, batch, state.device)
+    saved = [buf.clone() for buf in _bn_buffers(state.model)]
+    state.optimizer.zero_grad(set_to_none=True)
+    preds = state.model(batch["image"])
+    losses = compute_losses(state.cfg, preds, batch, vnl_indices=vnl_indices,
+                            generator=state.generator())
+    total = sum(losses.values())
+    total.backward()
+    losses = {k: v.detach() for k, v in losses.items()}
+    return dict(losses, total=total.detach()), saved
+
+
+def apply_grads(state: TrainState, total: torch.Tensor,
+                saved_bn: List[torch.Tensor]) -> bool:
+    """Adam's update, or, when ``total`` is not finite, no update and the
+    BatchNorm running statistics put back. Returns whether it applied."""
+    finite = bool(torch.isfinite(total))
+    if finite:
+        lr = state.schedule(state.updates)
+        for group in state.optimizer.param_groups:
+            group["lr"] = lr * group["lr_mult"]
+        state.optimizer.step()
+        state.updates += 1
+    else:
+        with torch.no_grad():
+            for buf, old in zip(_bn_buffers(state.model), saved_bn):
+                buf.copy_(old)
+    state.step += 1
+    return finite
+
+
+def train_step(state: TrainState, batch: Mapping,
+               vnl_indices: Optional[Dict[str, torch.Tensor]] = None
+               ) -> Dict[str, torch.Tensor]:
+    """One optimisation step; returns the losses with ``total``."""
+    losses, saved = grad_step(state, batch, vnl_indices)
+    apply_grads(state, losses["total"], saved)
+    return losses

@@ -6,7 +6,8 @@ The JAX package saves its variables as a flat ``.npz`` with "/"-joined keys
 to the port's state_dict key, which is the reference's torch key, and
 converts the layout: conv kernels HWIO -> OIHW; BatchNorm ``scale``/``bias``/
 ``mean``/``var`` -> ``weight``/``bias``/``running_mean``/``running_var``;
-GroupNorm ``scale`` -> ``weight``.
+GroupNorm ``scale`` -> ``weight``. ``to_jax_variables`` is its inverse, so
+the port's weights, and its gradients, can be read in the JAX layout.
 """
 
 from __future__ import annotations
@@ -173,4 +174,104 @@ def from_jax_variables(flat: Mapping[str, np.ndarray],
     for k in target:
         if k.endswith("num_batches_tracked"):
             out[k] = target[k]
+    return out
+
+
+_BN_INV = {v: k for k, v in _BN.items()}
+_GN_INV = {v: k for k, v in _GN.items()}
+
+
+def _bn_path(*path, leaf):
+    collection = "batch_stats" if leaf.startswith("running_") else "params"
+    return "/".join((collection,) + path + (_BN_INV[leaf],))
+
+
+def _dcn_or_conv_path(rest):
+    """Inverse of ``_dcn_or_conv_key``: the JAX leaves below the module."""
+    if rest == ["weight"]:
+        return ("kernel",)
+    if rest[0] == "regular_conv":
+        return ("regular_conv_" + _torch_conv_leaf(rest[1]),)
+    if rest[0] in ("offset_conv", "modulator_conv"):
+        return (rest[0], _torch_conv_leaf(rest[1]))
+    raise KeyError(rest)
+
+
+def _torch_conv_leaf(leaf: str) -> str:
+    return {"weight": "kernel", "bias": "bias"}[leaf]
+
+
+def _torch_key_to_jax(tkey: str) -> Optional[str]:
+    """The flat JAX key of one port state_dict key (None for
+    ``num_batches_tracked``). Raises KeyError on a key it does not know."""
+    parts = tkey.split(".")
+    module, leaf = parts[0], parts[-1]
+    if leaf == "num_batches_tracked":
+        return None
+
+    def params(*path):
+        return "/".join(("params", module) + path)
+
+    if module == "backbone":
+        if parts[1] == "conv1":
+            return params("conv1", "kernel")
+        if parts[1] == "bn1":
+            return _bn_path(module, "bn1", leaf=leaf)
+        _, _, stage, block, sub, *rest = parts
+        name = f"layer{stage}_{block}"
+        if sub in ("bn1", "bn2", "bn3"):
+            return _bn_path(module, name, sub, leaf=leaf)
+        if sub == "downsample":
+            if rest[0] == "0":
+                return params(name, "downsample_conv", "kernel")
+            return _bn_path(module, name, "downsample_bn", leaf=leaf)
+        if sub in ("conv1", "conv3"):
+            return params(name, sub, "kernel")
+        return params(name, "conv2", *_dcn_or_conv_path(rest))
+    if module == "fpn":
+        kind, i = parts[1][:-1], parts[2]
+        return params(f"{kind}{i}", _torch_conv_leaf(leaf))
+    if module == "inst_head":
+        if parts[1] in ("cate_pred", "kernel_pred"):
+            return params(parts[1], _torch_conv_leaf(leaf))
+        tower = parts[1][:-len("_tower")]
+        i, kind = divmod(int(parts[2]), 3)
+        if kind == 0:
+            return params(f"{tower}_tower{i}_conv",
+                          *_dcn_or_conv_path(parts[3:]))
+        return params(f"{tower}_tower{i}_gn", _GN_INV[leaf])
+    if module == "mask_head":
+        if parts[1] == "conv_pred":
+            return (params("conv_pred_conv", "kernel") if parts[2] == "0"
+                    else params("conv_pred_gn", _GN_INV[leaf]))
+        name = f"level{parts[2]}_{parts[3]}"
+        return (params(f"{name}_conv", "kernel") if parts[4] == "0"
+                else params(f"{name}_gn", _GN_INV[leaf]))
+    if module == "depth_decoder":
+        name = parts[1]
+        if name in ("conv1x1", "depth_pred") or name.startswith("latlayer"):
+            return params(name, _torch_conv_leaf(leaf))
+        conv_idx = 2 if name.startswith("deconv") else 1
+        if int(parts[2]) == conv_idx:
+            return params(name, "conv", _torch_conv_leaf(leaf))
+        return _bn_path(module, name, "bn", leaf=leaf)
+    raise KeyError(tkey)
+
+
+def to_jax_variables(state: Mapping[str, torch.Tensor]
+                     ) -> Dict[str, np.ndarray]:
+    """Port state_dict (or any mapping of its parameter names, such as
+    their gradients) -> flat "/"-keyed JAX variables, numpy f32, conv
+    kernels OIHW -> HWIO. The inverse of ``from_jax_variables``."""
+    out = {}
+    for tkey, value in state.items():
+        key = _torch_key_to_jax(tkey)
+        if key is None:
+            continue
+        if jax_key_to_torch(key) != tkey:
+            raise KeyError(f"{tkey}: no JAX key maps back to it ({key})")
+        v = value.detach().cpu().float().numpy()
+        if key.rsplit("/", 1)[-1] in _CONV_KERNELS:
+            v = np.transpose(v, (2, 3, 1, 0))           # OIHW -> HWIO
+        out[key] = np.ascontiguousarray(v)
     return out
