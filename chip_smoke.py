@@ -14,7 +14,8 @@
    (batch 8, 640x640) and timed beside it, its bound and, where one exists,
    the one PyTorch call that computes the same function: the DCN
    input-gradient scatter at the six PRN-50 DCN layer shapes (yardstick
-   ``grid_sampler_2d_backward``), the fused dice/lava forward and backward
+   ``grid_sampler_2d_backward``), the im2col at those shapes with the real
+   and with a unit mask, the fused dice/lava forward and backward
    (no single PyTorch call computes them); and the DCN Function's gradients
    against autograd of the plain forward at a small shape.
 5. inference main path: ``PlaneRecNetRunner(PlaneRecNet_50_config)`` with
@@ -251,14 +252,32 @@ def phase_scatter():
     """The DCN input-gradient scatter against its plain version at the six
     PRN-50 DCN shapes at 640x640; the yardstick is aten's bilinear
     grid-sampler input gradient over the same points, with the modulation
-    folded into its incoming gradient."""
+    folded into its incoming gradient. At the same shapes the im2col kernel
+    against its plain version, as the training step launches it: with the
+    real mask (forward) and a unit mask (the backward's samples). Returns
+    the scatter's records, its worst error and the im2col's."""
     from planerecnet_tpu_torch.ops import dcn
     from planerecnet_tpu_torch.ops.dcn_scatter import (dcn_input_grad,
                                                        dcn_input_grad_plain)
-    records, worst = [], 0.0
+    records, worst, worst_cols = [], 0.0, 0.0
+    tol = TOL[torch.float32]
     for i, (h, w, cin, stride, layers) in enumerate(DCN_SHAPES_TRAIN):
         x, off, mask, _, _, ho, wo = dcn_inputs(h, w, cin, stride,
                                                 torch.float32, seed=20 + i)
+        name = f"{h}x{w}x{cin}/s{stride}"
+        geom = dict(stride=stride, padding=1, kernel_size=3)
+        for which, m in (("mask", mask), ("unit mask", torch.ones_like(mask))):
+            cols = dcn.deform_im2col(x, off, m, **geom)
+            plain = dcn.deform_im2col_plain(x, off, m, **geom)
+            torch.cuda.synchronize()
+            err, ok = close_err(cols, plain, tol)
+            log(f"[im2col-train] {name} {which}: cols err {err:.3g} (tol "
+                f"{tol} of scale)")
+            if not ok:
+                raise AssertionError(f"im2col disagrees with plain at {name} "
+                                     f"({which})")
+            worst_cols = max(worst_cols, err)
+            del cols, plain
         idx, cw = dcn.scatter_inputs(off, mask, h, w, stride=stride)
         g = torch.Generator(device="cuda").manual_seed(40 + i)
         r = ho * wo * 9
@@ -266,10 +285,8 @@ def phase_scatter():
         got = dcn_input_grad(idx, cw, dcols, h, w)
         want = dcn_input_grad_plain(idx, cw, dcols, h, w)
         torch.cuda.synchronize()
-        err, ok = close_err(got, want, TOL[torch.float32])
-        name = f"{h}x{w}x{cin}/s{stride}"
-        log(f"[scatter] {name}: err {err:.3g} (tol {TOL[torch.float32]} "
-            f"of scale)")
+        err, ok = close_err(got, want, tol)
+        log(f"[scatter] {name}: err {err:.3g} (tol {tol} of scale)")
         if not ok:
             raise AssertionError(f"scatter disagrees with plain at {name}")
         worst = max(worst, err)
@@ -297,7 +314,7 @@ def phase_scatter():
             f"grid_sampler_2d_backward {lib_ms:.4f} ms, bound {b_ms:.4f} ms "
             f"({b_by}), {nbytes / ms / 1e6:.1f} GB/s achieved")
         records.append(rec)
-    return records, worst
+    return records, worst, worst_cols
 
 
 def dice_inputs(seed):
@@ -686,12 +703,15 @@ def phase_train_cpu_vs_gpu():
     errs = sorted(float(np.abs(gg[k] - v).max() / max(np.abs(v).max(), 1e-12))
                   for k, v in gc.items() if np.abs(v).max() > 1e-6)
     # f32 on both, summed in other orders (cuDNN against oneDNN
-    # convolutions, atomics in the scatter and dice kernels); a ReLU input
-    # within rounding of 0 may flip and move one leaf by a few percent.
+    # convolutions, atomics in the scatter and dice kernels). The leaves'
+    # errors spread (1.3e-3 the largest measured on an H100): a ReLU input
+    # within rounding of 0 may flip on one device. Every leaf, the DCN
+    # offset and modulator convs among them, is held at 1e-2 of its scale.
     med, p95 = float(np.median(errs)), float(np.quantile(errs, 0.95))
-    if med > 1e-4 or p95 > 1e-3:
+    if med > 1e-4 or p95 > 1e-3 or errs[-1] > 1e-2:
         raise AssertionError(f"gradients CPU vs GPU: median {med}, 95th "
-                             f"percentile {p95} of the leaf scale")
+                             f"percentile {p95}, max {errs[-1]} of the leaf "
+                             f"scale")
     log(f"[train-cpu-vs-gpu] tiny preset, 2x128x128, TF32 off: losses "
         f"agree {json.dumps({k: [lc[k], lg[k]] for k in lc})}; gradients "
         f"of {len(errs)} leaves: median err {med:.3g}, 95th percentile "
@@ -817,7 +837,7 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     records, worst = phase_kernel(dcn)
-    scatter, scatter_err = phase_scatter()
+    scatter, scatter_err, cols_err_train = phase_scatter()
     dice = phase_dice()
     phase_dcn_grads()
     torch.backends.cudnn.allow_tf32 = True      # PyTorch's default
@@ -875,7 +895,7 @@ def main():
         "launches": launches["dcn_im2col"],
         "launches_by_path": {"infer": infer_launches,
                              "train": launches["dcn_im2col"]},
-        "max_abs_err": worst,
+        "max_abs_err": max(worst, cols_err_train),
         "ms": total(records, "ms"),
         "plain_ms": total(records, "plain_ms"),
         "bound_ms": total(records, "bound_ms"),

@@ -178,12 +178,6 @@ class PlaneRecNetConfig(_FrozenBase):
     vnl_samples: int = 512
     vnl_max_planes: int = 16
 
-    # The JAX package's switch between its Pallas loss kernel and the
-    # unfused XLA composition. Kept for preset parity: the port always
-    # takes the fused formulation (``ops/dice_lava.py``), the kernel on
-    # the card and its plain version on the CPU.
-    fused_loss_kernel: str = "auto"
-
     backbone: BackboneConfig = resnet101_backbone.copy(
         dict(selected_layers=tuple(range(2, 4))))
     fpn: FPNConfig = fpn_base.copy(dict(start_level=0,

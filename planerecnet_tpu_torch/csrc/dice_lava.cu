@@ -417,7 +417,7 @@ Args make_args(const void* kernels, const void* feat, const void* onehot,
 extern "C" {
 
 // All tensors f32, contiguous, on one card, 16-byte aligned. P <= 128,
-// K in {32, 64, 128, 256}; the shared memory grows with K and N, and a
+// K in {32, 128, 256} (the presets' kernel widths); the shared memory grows with K and N, and a
 // launch that asks for more than the card has fails. grid_x pixel-tile
 // blocks per image. a, b, lava (B, P) must be zeroed. Returns the
 // cudaError_t of the launch.
@@ -433,7 +433,6 @@ int prn_dice_lava_fwd(const void* kernels, const void* feat,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (K) {
     case 32: return launch_fwd<32>(a, oa, ob, ol, grid_x, s);
-    case 64: return launch_fwd<64>(a, oa, ob, ol, grid_x, s);
     case 128: return launch_fwd<128>(a, oa, ob, ol, grid_x, s);
     case 256: return launch_fwd<256>(a, oa, ob, ol, grid_x, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
@@ -455,7 +454,6 @@ int prn_dice_lava_bwd(const void* kernels, const void* feat,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (K) {
     case 32: return launch_bwd<32>(a, pa, pb, pl, odk, odm, grid_x, s);
-    case 64: return launch_bwd<64>(a, pa, pb, pl, odk, odm, grid_x, s);
     case 128: return launch_bwd<128>(a, pa, pb, pl, odk, odm, grid_x, s);
     case 256: return launch_bwd<256>(a, pa, pb, pl, odk, odm, grid_x, s);
     default: return static_cast<int>(cudaErrorInvalidValue);

@@ -28,8 +28,8 @@ import torch
 
 from planerecnet_tpu_torch.ops import cuda_build
 
-# What the kernels take (see csrc/dice_lava.cu).
-_KERNEL_K = (32, 64, 128, 256)
+# What the kernels take (see csrc/dice_lava.cu): the K of the presets.
+_KERNEL_K = (32, 128, 256)
 _MAX_P = 128
 # Pixel-tile blocks per card SM over the whole batch: enough blocks in
 # flight, few atomics per output.

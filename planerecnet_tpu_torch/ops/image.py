@@ -46,12 +46,15 @@ def _resize_taps(in_size: int, out_size: int, device: torch.device):
                  for a in (lo, hi, w_lo, w_hi))
 
 
+@functools.lru_cache(maxsize=256)
 def _resize_weights(in_size: int, out_size: int,
                     device=None) -> torch.Tensor:
     """Dense (in, out) f32 bilinear interpolation matrix of the resize from
     ``in_size`` to ``out_size``: column j holds output j's two taps (the
     identity when the sizes are equal). Counterpart of the JAX package's
-    ``ops/image.py::_resize_weights``, from the same float64 positions."""
+    ``ops/image.py::_resize_weights``, from the same float64 positions.
+    Cached per (sizes, device), as ``_resize_taps`` is: callers must not
+    write into it."""
     if in_size == out_size:
         return torch.eye(in_size, device=device)
     lo, hi, frac = _source_taps(in_size, out_size)
