@@ -15,8 +15,11 @@
    the one PyTorch call that computes the same function: the DCN
    input-gradient scatter at the six PRN-50 DCN layer shapes (yardstick
    ``grid_sampler_2d_backward``), the im2col at those shapes with the real
-   and with a unit mask, the fused dice/lava forward and backward
-   (no single PyTorch call computes them); and the DCN Function's gradients
+   and with a unit mask (timed: the training step's 26 launches), the
+   fused dice/lava forward and backward (no single PyTorch call computes
+   them) at each K of the presets, P = 100, a ragged HW and fractional
+   inputs, then timed at the training shape, bound at the 3xTF32
+   tensor-core rate and at the f32 rate; and the DCN Function's gradients
    against autograd of the plain forward at a small shape.
 5. inference main path: ``PlaneRecNetRunner(PlaneRecNet_50_config)`` with
    seeded, perturbed weights answers 3 requests of 8 distinct 480x640
@@ -55,6 +58,9 @@ import torch.nn.functional as F
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 F32_FLOPS_PER_S = 67e12        # H100 SXM, f32 outside the tensor cores
+# The dice/lava products run as three TF32 products each (3xTF32) on the
+# tensor cores, 495 TFLOP/s dense TF32 (H100 SXM data sheet).
+TF32X3_FLOPS_PER_S = 495e12 / 3
 BATCH, HEIGHT, WIDTH = 8, 480, 640
 REQUESTS = 3
 DCN_LAYERS_PRN50 = 13
@@ -239,11 +245,11 @@ def phase_kernel(dcn):
     return records, worst
 
 
-def bound(nbytes, flops):
+def bound(nbytes, flops, rate=F32_FLOPS_PER_S):
     """(bound_ms, bound_by): the larger of bytes over the memory rate and
-    f32 operations over the f32 rate."""
+    operations over ``rate``, the peak of the units they run on."""
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = flops / F32_FLOPS_PER_S * 1e3
+    ops_ms = flops / rate * 1e3
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
                                    else "operations")
 
@@ -254,12 +260,13 @@ def phase_scatter():
     grid-sampler input gradient over the same points, with the modulation
     folded into its incoming gradient. At the same shapes the im2col kernel
     against its plain version, as the training step launches it: with the
-    real mask (forward) and a unit mask (the backward's samples). Returns
-    the scatter's records, its worst error and the im2col's."""
+    real mask (forward) and a unit mask (the backward's samples), each
+    launch timed beside its bound. Returns the scatter's records, its worst
+    error, the im2col's worst error and the im2col's training records."""
     from planerecnet_tpu_torch.ops import dcn
     from planerecnet_tpu_torch.ops.dcn_scatter import (dcn_input_grad,
                                                        dcn_input_grad_plain)
-    records, worst, worst_cols = [], 0.0, 0.0
+    records, worst, worst_cols, cols_train = [], 0.0, 0.0, []
     tol = TOL[torch.float32]
     for i, (h, w, cin, stride, layers) in enumerate(DCN_SHAPES_TRAIN):
         x, off, mask, _, _, ho, wo = dcn_inputs(h, w, cin, stride,
@@ -278,6 +285,20 @@ def phase_scatter():
                                      f"({which})")
             worst_cols = max(worst_cols, err)
             del cols, plain
+        # The training step's two launches at this shape, and their bound:
+        # x, offsets, mask and cols moved once each, two flops per valid
+        # corner and channel and one for the mask.
+        ms = sum(cuda_time_ms(lambda m=m: dcn.deform_im2col(x, off, m, **geom))
+                 for m in (mask, torch.ones_like(mask)))
+        nbytes = 4 * (x.numel() + off.numel() + mask.numel()
+                      + BATCH * ho * wo * 9 * cin)
+        flops = (2 * valid_corners(off, h, w, stride, ho, wo) * cin
+                 + BATCH * ho * wo * 9 * cin)
+        b_ms, b_by = bound(nbytes, flops)
+        cols_train.append(dict(shape=name, layers=layers, ms=ms,
+                               bound_ms=2 * b_ms, bound_by=b_by))
+        log(f"[im2col-train] {name}: mask + unit mask {ms:.4f} ms, bound "
+            f"{2 * b_ms:.4f} ms ({b_by})")
         idx, cw = dcn.scatter_inputs(off, mask, h, w, stride=stride)
         g = torch.Generator(device="cuda").manual_seed(40 + i)
         r = ho * wo * 9
@@ -314,48 +335,89 @@ def phase_scatter():
             f"grid_sampler_2d_backward {lib_ms:.4f} ms, bound {b_ms:.4f} ms "
             f"({b_by}), {nbytes / ms / 1e6:.1f} GB/s achieved")
         records.append(rec)
-    return records, worst, worst_cols
+    return records, worst, worst_cols, cols_train
 
 
-def dice_inputs(seed):
-    """Training-shape inputs of the fused dice/lava kernels: a quarter of
-    the slots invalid (all-zero one-hot rows)."""
-    d = DICE
+def dice_inputs(seed, b, p, k, n, hw, kind="onehot"):
+    """Inputs of the fused dice/lava kernels. "onehot": a quarter of the
+    slots invalid (all-zero one-hot rows), binary targets, as the training
+    step gives them. "fractional": the general contract, a fractional
+    ``onehot`` with several non-zero entries per row and fractional
+    ``targets``."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     kw = dict(device="cuda", generator=g)
-    kernels = torch.randn(d["b"], d["p"], d["k"], **kw) * 0.2
-    feat = torch.randn(d["b"], d["hw"], d["k"], **kw) * 0.2
-    inst = torch.randint(0, d["n"], (d["b"], d["p"]), **kw)
-    onehot = torch.nn.functional.one_hot(inst, d["n"]).float()
-    onehot[:, ::4] = 0
-    targets = (torch.rand(d["b"], d["n"], d["hw"], **kw) > 0.5).float()
-    grad = torch.rand(d["b"], d["hw"], **kw) * 1e-2
-    gs = [torch.randn(d["b"], d["p"], **kw) for _ in range(3)]
+    kernels = torch.randn(b, p, k, **kw) * 0.2
+    feat = torch.randn(b, hw, k, **kw) * 0.2
+    if kind == "onehot":
+        inst = torch.randint(0, n, (b, p), **kw)
+        onehot = torch.nn.functional.one_hot(inst, n).float()
+        onehot[:, ::4] = 0
+        targets = (torch.rand(b, n, hw, **kw) > 0.5).float()
+    else:
+        onehot = (torch.rand(b, p, n, **kw)
+                  * (torch.rand(b, p, n, **kw) > 0.5))
+        targets = torch.rand(b, n, hw, **kw)
+    grad = torch.rand(b, hw, **kw) * 1e-2
+    gs = [torch.randn(b, p, **kw) for _ in range(3)]
     return (kernels, feat, onehot, targets, grad), gs
 
 
-def phase_dice():
-    """The fused dice/lava forward and backward kernels against their plain
-    versions at the PRN-50 training shape. No single PyTorch call computes
-    either function, so there is no library yardstick."""
-    from planerecnet_tpu_torch.ops import dice_lava as dl
-    ins, gs = dice_inputs(seed=50)
+# Where the tiles can go wrong: each preset's K (pixel tiles 64 wide in the
+# forward and 32 in the backward, 16 at K=256; the backward's dk and dm on
+# wgmma below K=256, on mma.sync at it), P = 100 (< 128, not a multiple of
+# 64), HW = 2381 (not a multiple of any tile), the general contract
+# (fractional, multi-entry one-hot rows, fractional targets), and the
+# largest N the kernels take (63).
+DICE_CASES = [
+    dict(b=2, p=100, k=32, n=4, hw=2381, kind="fractional"),
+    dict(b=2, p=100, k=128, n=32, hw=2381, kind="fractional"),
+    dict(b=2, p=100, k=256, n=32, hw=2381, kind="fractional"),
+    dict(b=2, p=128, k=256, n=32, hw=1000, kind="onehot"),
+    dict(b=3, p=16, k=128, n=63, hw=333, kind="fractional"),
+    dict(b=2, p=100, k=256, n=63, hw=555, kind="fractional"),
+]
+
+
+def dice_errors(dl, ins, gs, what):
+    """Both kernels against their plain versions; raises past f32 TOL."""
     got = dl.dice_lava_fwd(*ins)
     want = dl.fused_dice_lava_plain(*ins)
     got_b = dl.dice_lava_bwd(*ins, *gs)
     want_b = dl.fused_dice_lava_bwd_plain(*ins, *gs)
     torch.cuda.synchronize()
     tol = TOL[torch.float32]
-    errs = {}
+    errs, used = {}, {}
     for name, g, w in zip(("a", "b", "lava", "dk", "dm"), (*got, *got_b),
                           (*want, *want_b)):
         errs[name], ok = close_err(g, w, tol)
-        if not ok:
-            raise AssertionError(f"dice_lava {name} disagrees with plain: "
-                                 f"{errs[name]}")
-    log(f"[dice] errors against plain {json.dumps(errs)} (tol {tol} of "
-        f"scale)")
+        # The share of its allowance the worst element uses (1 = at TOL).
+        used[name] = float(((g - w).abs() / (tol * (w.abs().max() + w.abs())
+                                             + 1e-30)).max())
+        if not ok or not torch.isfinite(g).all():
+            raise AssertionError(f"dice_lava {name} disagrees with plain at "
+                                 f"{what}: {errs[name]}")
+    log(f"[dice] {what}: errors against plain {json.dumps(errs)} (tol {tol} "
+        f"of scale); share of the allowance used "
+        f"{json.dumps({k: round(v, 3) for k, v in used.items()})}")
+    return errs
+
+
+def phase_dice():
+    """The fused dice/lava forward and backward kernels against their plain
+    versions at every case of DICE_CASES and at the PRN-50 training shape,
+    where they are timed. No single PyTorch call computes either function,
+    so there is no library yardstick. Two bounds: the products at the
+    3xTF32 tensor-core rate (the units they run on) and at the f32 rate."""
+    from planerecnet_tpu_torch.ops import dice_lava as dl
+    worst = {"fwd": 0.0, "bwd": 0.0}
+    for i, case in enumerate(DICE_CASES):
+        ins, gs = dice_inputs(51 + i, **case)
+        errs = dice_errors(dl, ins, gs, f"{case}")
+        worst["fwd"] = max(worst["fwd"], errs["a"], errs["b"], errs["lava"])
+        worst["bwd"] = max(worst["bwd"], errs["dk"], errs["dm"])
     d = DICE
+    ins, gs = dice_inputs(50, **d)
+    errs = dice_errors(dl, ins, gs, f"training shape {d}")
     pq = d["b"] * d["p"] * d["hw"]
     in_bytes = 4 * sum(t.numel() for t in ins)
     out = {}
@@ -367,17 +429,24 @@ def phase_dice():
              lambda: dl.fused_dice_lava_bwd_plain(*ins, *gs),
              2 * pq * (d["k"] + d["n"]) + 2 * 2 * pq * d["k"],
              4 * (d["b"] * d["p"] * d["k"] + d["b"] * d["hw"] * d["k"]))):
-        ms = cuda_time_ms(fn, iters=10)
+        ms = cuda_time_ms(fn, iters=20)
         plain_ms = cuda_time_ms(plain, iters=5)
+        ms_again = cuda_time_ms(fn, iters=20)
         extra = 4 * 3 * d["b"] * d["p"] if name == "bwd" else 0
-        b_ms, b_by = bound(in_bytes + extra + out_bytes, flops)
+        nbytes = in_bytes + extra + out_bytes
+        b_ms, b_by = bound(nbytes, flops, TF32X3_FLOPS_PER_S)
+        f32_ms, f32_by = bound(nbytes, flops)
         err = (max(errs["a"], errs["b"], errs["lava"]) if name == "fwd"
                else max(errs["dk"], errs["dm"]))
-        out[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                         bound_by=b_by, flops=flops, max_abs_err=err)
-        log(f"[dice] {name} {d}: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-            f"{b_ms:.4f} ms ({b_by}; {flops / 1e9:.2f} GFLOP), "
-            f"{flops / ms / 1e9:.2f} TFLOP/s achieved")
+        out[name] = dict(ms=min(ms, ms_again), plain_ms=plain_ms,
+                         bound_ms=b_ms, bound_by=b_by, bound_f32_ms=f32_ms,
+                         bound_f32_by=f32_by, flops=flops,
+                         max_abs_err=max(err, worst[name]))
+        log(f"[dice] {name} {d}: {ms:.4f} and {ms_again:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms at 3xTF32 ({b_by}), "
+            f"{f32_ms:.4f} ms at f32 ({f32_by}); {flops / 1e9:.2f} GFLOP, "
+            f"{flops / min(ms, ms_again) / 1e9:.2f} TFLOP/s achieved; "
+            f"max err {out[name]['max_abs_err']:.3g}")
     return out
 
 
@@ -550,7 +619,9 @@ def phase_cpu_vs_gpu(runner, cfg):
     diff = (got["pred_masks"] != want["pred_masks"])[valid]
     frac = float(diff.float().mean())
     if frac > 1e-3:
-        raise AssertionError(f"{frac:.2e} of mask pixels differ")
+        raise AssertionError(f"{frac:.2e} of mask pixels differ; raw errs "
+                             f"{json.dumps(errs)}, depth err {e_depth:.3g}, "
+                             f"score err {e_scores:.3g}")
     log(f"[cpu-vs-gpu] 1x256x320, TF32 off: CPU {cpu_s:.1f} s; "
         f"{int(valid.sum())} valid detections agree; depth err "
         f"{e_depth:.3g}, score err {e_scores:.3g}, mask pixels differing "
@@ -837,7 +908,7 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     records, worst = phase_kernel(dcn)
-    scatter, scatter_err, cols_err_train = phase_scatter()
+    scatter, scatter_err, cols_err_train, cols_train = phase_scatter()
     dice = phase_dice()
     phase_dcn_grads()
     torch.backends.cudnn.allow_tf32 = True      # PyTorch's default
@@ -881,6 +952,10 @@ def main():
         "plain_ms": DICE_LEVELS * dice[d]["plain_ms"],
         "bound_ms": DICE_LEVELS * dice[d]["bound_ms"],
         "bound_by": dice[d]["bound_by"],
+        "bound_f32_ms": DICE_LEVELS * dice[d]["bound_f32_ms"],
+        "bound_rates": "bound_ms: the products at the 3xTF32 tensor-core "
+                       "rate (495/3 TFLOP/s), the units they run on; "
+                       "bound_f32_ms: at the f32 rate (67 TFLOP/s)",
         "library_ms": None,
         "library": "none: no single PyTorch call computes it",
         "per": f"{train_per}: {DICE_LEVELS} launches at {DICE}",
@@ -901,8 +976,11 @@ def main():
         "bound_ms": total(records, "bound_ms"),
         "bound_by": bound_by(records),
         "library_ms": total(records, "library_ms"),
+        "train_step_ms": total(cols_train, "ms"),
+        "train_step_bound_ms": total(cols_train, "bound_ms"),
         "per": f"times: one request, the {DCN_LAYERS_PRN50} PRN-50 DCN "
-               f"layers at batch {BATCH}, {HEIGHT}x{WIDTH}, f32; launches: "
+               f"layers at batch {BATCH}, {HEIGHT}x{WIDTH}, f32; train_step_*: "
+               f"the {2 * DCN_LAYERS_PRN50} launches of {train_per}; launches: "
                f"{TIMED_STEPS} training steps (and {REQUESTS} requests)",
         "card": card,
     }, {

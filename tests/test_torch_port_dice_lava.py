@@ -6,6 +6,12 @@ the plain forward), so these tests hold what the card's kernels compute
 against ``fused_dice_lava`` (the Pallas kernels in interpret mode, with
 ``jax.grad`` through its custom VJP) and against ``fused_dice_lava_xla``.
 
+Besides the one-hot rows the training step gives, the forward and backward
+tests take the general contract: a fractional ``onehot`` with several
+non-zero entries per row and fractional ``targets``. The card's kernels
+form a[p] as sum_n onehot[p, n] (sum_q s t_n), which holds for any onehot
+only if the plain versions they are checked against do too.
+
 Tolerance: rtol 1e-5, atol 1e-4 for the per-slot sums (f32 sums of up to a
 few thousand terms of O(1), reduced in other orders); rtol and atol 1e-5
 for the gradients.
@@ -30,18 +36,27 @@ GRAD_TOL = dict(rtol=1e-5, atol=1e-5)
 WEIGHTS = (0.7, -0.3, 1.3)     # the loss sum(0.7 a - 0.3 b + 1.3 lava)
 
 
-def _inputs(b=2, p=16, k=32, n=4, hw=300, seed=0):
-    """Some slots invalid (all-zero one-hot rows)."""
+def _inputs(b=2, p=16, k=32, n=4, hw=300, seed=0, kind="onehot"):
+    """"onehot": some slots invalid (all-zero one-hot rows), binary targets.
+    "fractional": rows with several fractional entries (and some all-zero
+    rows), fractional targets."""
     rng = np.random.RandomState(seed)
     kernels = rng.randn(b, p, k).astype(np.float32) * 0.2
     feat = rng.randn(b, hw, k).astype(np.float32) * 0.2
-    onehot = np.zeros((b, p, n), np.float32)
-    for bi in range(b):
-        for pi in range(p):
-            if rng.rand() > 0.25:
-                onehot[bi, pi, rng.randint(n)] = 1.0
+    if kind == "onehot":
+        onehot = np.zeros((b, p, n), np.float32)
+        for bi in range(b):
+            for pi in range(p):
+                if rng.rand() > 0.25:
+                    onehot[bi, pi, rng.randint(n)] = 1.0
+        targets = (rng.rand(b, n, hw) > 0.5).astype(np.float32)
+    else:
+        onehot = (rng.rand(b, p, n) * (rng.rand(b, p, n) > 0.4)).astype(
+            np.float32)
+        onehot[:, ::5] = 0.0
+        assert ((onehot > 0).sum(-1) > 1).any()
+        targets = rng.rand(b, n, hw).astype(np.float32)
     assert (onehot.sum(-1) == 0).any()
-    targets = (rng.rand(b, n, hw) > 0.5).astype(np.float32)
     grad = rng.rand(b, hw).astype(np.float32)
     return kernels, feat, onehot, targets, grad
 
@@ -57,11 +72,17 @@ def _interpret(oracle):
     return contextlib.nullcontext()
 
 
-# hw=2381: not a multiple of the Pallas chunk (1024) nor of the CUDA tile.
-@pytest.mark.parametrize("hw", [300, 2381])
+# hw=2381: not a multiple of the Pallas chunk (1024) nor of the CUDA tiles.
+CASES = [pytest.param(300, "onehot", id="300"),
+         pytest.param(2381, "onehot", id="2381"),
+         pytest.param(300, "fractional", id="300-fractional"),
+         pytest.param(2381, "fractional", id="2381-fractional")]
+
+
+@pytest.mark.parametrize("hw,kind", CASES)
 @pytest.mark.parametrize("oracle", ["pallas_interpret", "xla"])
-def test_forward_matches_jax(hw, oracle):
-    args = _inputs(hw=hw, seed=hw)
+def test_forward_matches_jax(hw, kind, oracle):
+    args = _inputs(hw=hw, seed=hw, kind=kind)
     with _interpret(oracle):
         want = _jax_fused([jnp.asarray(a) for a in args],
                           oracle == "pallas_interpret")
@@ -71,10 +92,10 @@ def test_forward_matches_jax(hw, oracle):
                                    **SUM_TOL)
 
 
-@pytest.mark.parametrize("hw", [300, 2381])
+@pytest.mark.parametrize("hw,kind", CASES)
 @pytest.mark.parametrize("oracle", ["pallas_interpret", "xla"])
-def test_backward_matches_jax(hw, oracle):
-    args = _inputs(hw=hw, seed=hw + 1)
+def test_backward_matches_jax(hw, kind, oracle):
+    args = _inputs(hw=hw, seed=hw + 1, kind=kind)
 
     def loss(kernels, feat):
         a, b, lava = _jax_fused([kernels, feat] + [jnp.asarray(x)
@@ -122,3 +143,7 @@ def test_cpu_dispatch_and_checks():
         dice_lava.dice_lava_fwd(args[0], args[1][:, :-1], *args[2:])
     with pytest.raises(ValueError):
         dice_lava.dice_lava_fwd(*(a.to("meta") for a in args))
+    # What the kernels take, checked before anything touches a card.
+    for p, k, n in ((129, 128, 32), (128, 64, 32), (128, 128, 64)):
+        with pytest.raises(ValueError):
+            dice_lava._launch_geometry("dice_lava_fwd", p, k, n, "cuda")
