@@ -104,7 +104,16 @@
 //   256  fwd   16    48        -         128          11.3 / 18    188.2 / 195.0
 //   256  bwd   16    48        16        128          11.3 / 18    204.2 / 211.0
 // (features: two ring stages and the lo buffer; targets: two stages and
-// the lo buffer.) N <= 63: [targets; g] is at most 8 n8 blocks.
+// the lo buffer.)
+//
+// Instances. One launch takes N <= 63, so that [targets; g] is at most 8
+// n8 blocks (registers of C, the target ring above). A larger N is split
+// on the host into even chunks of at most 63, one launch each over the
+// same tiles, in stream order: each adds its instances' share of a and,
+// in the backward, of dl (the ga t term) to dk and dm; the first launch
+// alone adds b, lava and dl's other terms, and writes dm, which the later
+// ones add to. Each chunk recomputes S; the presets (N = 32, tiny 4) take
+// one launch.
 
 #include <cuda_runtime.h>
 
@@ -115,6 +124,7 @@ namespace {
 constexpr int kThreads = 256;   // two warpgroups
 constexpr int kMaxP = 128;      // 8 warps x 16 slots
 constexpr int kMaxNB = 8;       // n8 blocks of [targets; g]: N + 1 <= 64
+constexpr int kMaxN = 8 * kMaxNB - 1;   // instances of one launch
 // dk leaves its tensor-core accumulator for global memory every kDkTiles
 // tiles, besides at the end of an image: that accumulation drifts over
 // hundreds of increments (dk used 0.58 of its error allowance with one
@@ -130,10 +140,12 @@ template <int K, bool BWD> struct Tile {
 struct Args {
   const float* kernels;  // (B, P, K)
   const float* feat;     // (B, HW, K)
-  const float* onehot;   // (B, P, N)
-  const float* targets;  // (B, N, HW)
+  const float* onehot;   // (B, P, ldn), from this launch's first instance
+  const float* targets;  // (B, ldn, HW), from this launch's first instance
   const float* grad;     // (B, HW)
-  int B, P, N, HW;
+  int B, P, N, HW;       // N: this launch's instances
+  int ldn;               // all instances
+  bool lead;             // the first (or only) chunk of N (see the header)
 };
 
 // Shared-memory carve, in floats from a 1024-byte aligned base. The
@@ -425,7 +437,7 @@ __device__ void prefetch(const Args& a, int b, int q0, int stage,
                valid ? fb + (size_t)(q0 + q) * K + k4 : fb, valid);
   }
   float* ts = c.smem + (stage ? c.l.ts1 : c.l.ts0);
-  const float* tb = a.targets + (size_t)b * a.N * a.HW;
+  const float* tb = a.targets + (size_t)b * a.ldn * a.HW;
   const float* gb = a.grad + (size_t)b * a.HW;
   for (int i = threadIdx.x; i < (a.N + 1) * TQ; i += kThreads) {
     const int n = i / TQ;
@@ -583,8 +595,8 @@ __global__ void __launch_bounds__(kThreads, 1)
           const int n = 8 * nb + 2 * c.t + e;
           const float v = cacc[nb][2 * h + e];
           if (n < a.N && p < a.P)
-            va = fmaf(__ldg(a.onehot + ((size_t)b * a.P + p) * a.N + n), v,
-                      va);
+            va = fmaf(__ldg(a.onehot + ((size_t)b * a.P + p) * a.ldn + n),
+                      v, va);
           else if (n == a.N)
             vl += v;
         }
@@ -598,8 +610,10 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
       if (c.t == 0 && p < a.P) {
         atomicAdd(out_a + (size_t)b * a.P + p, va);
-        atomicAdd(out_b + (size_t)b * a.P + p, vb);
-        atomicAdd(out_l + (size_t)b * a.P + p, vl);
+        if (a.lead) {
+          atomicAdd(out_b + (size_t)b * a.P + p, vb);
+          atomicAdd(out_l + (size_t)b * a.P + p, vl);
+        }
       }
       sb[h] = 0.f;
     }
@@ -783,10 +797,10 @@ __global__ void __launch_bounds__(kThreads, 1)
         const int p = row0 + 8 * h;
         const size_t o = (size_t)b * a.P + p;
         cga[h] = p < a.P ? ga[o] : 0.f;
-        cgb[h] = p < a.P ? gb[o] : 0.f;
-        cgl[h] = p < a.P ? gl[o] : 0.f;
+        cgb[h] = p < a.P && a.lead ? gb[o] : 0.f;
+        cgl[h] = p < a.P && a.lead ? gl[o] : 0.f;
       }
-      const float* oh0 = a.onehot + ((size_t)b * a.P + row0) * a.N;
+      const float* oh0 = a.onehot + ((size_t)b * a.P + row0) * a.ldn;
 #pragma unroll
       for (int kk = 0; kk < kMaxNB; ++kk)
 #pragma unroll
@@ -794,7 +808,7 @@ __global__ void __launch_bounds__(kThreads, 1)
           const int p = row0 + 8 * (r & 1);
           const int n = 8 * kk + c.t + 4 * (r >> 1);
           ohf[kk][r] = p < a.P && n < a.N
-                           ? __ldg(oh0 + 8 * (r & 1) * a.N + n) : 0.f;
+                           ? __ldg(oh0 + 8 * (r & 1) * a.ldn + n) : 0.f;
         }
       cur = b;
     }
@@ -975,11 +989,17 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int i = threadIdx.x; i < TQ * (K / 4); i += kThreads) {
         const int q = i / (K / 4);
         const int c4 = 4 * (i - q * (K / 4));
-        if (q < qn)
-          *reinterpret_cast<float4*>(dm + ((size_t)b * a.HW + q0 + q) * K +
-                                     c4) =
-              *reinterpret_cast<const float4*>(stg + q * K +
-                                               (c4 ^ (4 * (q & 7))));
+        if (q < qn) {
+          float4* d = reinterpret_cast<float4*>(
+              dm + ((size_t)b * a.HW + q0 + q) * K + c4);
+          float4 v = *reinterpret_cast<const float4*>(stg + q * K +
+                                                      (c4 ^ (4 * (q & 7))));
+          if (!a.lead) {
+            const float4 w = *d;
+            v = make_float4(v.x + w.x, v.y + w.y, v.z + w.z, v.w + w.w);
+          }
+          *d = v;
+        }
       }
     } else {
       // dm_tile (TQ x K) = dl^T . kernels (k = slots): warp w takes the n8
@@ -1032,10 +1052,16 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
             const int q = 16 * m + c.g + 8 * h;
-            if (q < qn)
-              *reinterpret_cast<float2*>(
-                  dm + ((size_t)b * a.HW + q0 + q) * K + 8 * nb + 2 * c.t) =
-                  make_float2(dma[m][i][2 * h], dma[m][i][2 * h + 1]);
+            if (q < qn) {
+              float2* d = reinterpret_cast<float2*>(
+                  dm + ((size_t)b * a.HW + q0 + q) * K + 8 * nb + 2 * c.t);
+              float2 v = make_float2(dma[m][i][2 * h], dma[m][i][2 * h + 1]);
+              if (!a.lead) {
+                const float2 w = *d;
+                v = make_float2(v.x + w.x, v.y + w.y);
+              }
+              *d = v;
+            }
           }
       }
     }
@@ -1099,12 +1125,30 @@ Args make_args(const void* kernels, const void* feat, const void* onehot,
               static_cast<const float*>(feat),
               static_cast<const float*>(onehot),
               static_cast<const float*>(targets),
-              static_cast<const float*>(grad), B, P, N, HW};
+              static_cast<const float*>(grad), B, P, N, HW, N, true};
 }
 
-bool valid_shape(int B, int P, int N, int HW) {
+// launch(chunk) for each chunk of a's instances: even chunks of at most
+// kMaxN, the first one the lead (see the header). Stops at the first
+// error.
+template <typename Launch>
+int per_chunk(const Args& a, Launch launch) {
+  const int chunks = (a.N + kMaxN - 1) / kMaxN;
+  const int per = (a.N + chunks - 1) / chunks;
+  for (int n0 = 0; n0 < a.N; n0 += per) {
+    Args c = a;
+    c.onehot = a.onehot + n0;
+    c.targets = a.targets + (size_t)n0 * a.HW;
+    c.N = a.N - n0 < per ? a.N - n0 : per;
+    c.lead = n0 == 0;
+    if (int err = launch(c)) return err;
+  }
+  return 0;
+}
+
+bool valid_shape(int B, int P, int K, int N, int HW) {
   return B > 0 && HW > 0 && P > 0 && P <= kMaxP && N >= 1 &&
-         N + 1 <= 8 * kMaxNB;
+         (K == 32 || K == 128 || K == 256);
 }
 
 }  // namespace
@@ -1112,28 +1156,32 @@ bool valid_shape(int B, int P, int N, int HW) {
 extern "C" {
 
 // All tensors f32, contiguous, on one card, 16-byte aligned. P <= 128,
-// N <= 63, K in {32, 128, 256} (the presets' kernel widths); the shared
-// memory grows with K and N, and a launch that asks for more than the
-// card has fails. grid_x is the card's SM count: the grid is persistent,
-// as many blocks as fit on those SMs at once. a, b, lava (B, P) must be
-// zeroed. Returns the cudaError_t of the launch.
+// K in {32, 128, 256} (the presets' kernel widths), any N >= 1 (one
+// launch per chunk of at most 63 instances); the shared memory grows with
+// K and the chunk's N, and a launch that asks for more than the card has
+// fails. grid_x is the card's SM count: the grid is persistent, as many
+// blocks as fit on those SMs at once. a, b, lava (B, P) must be zeroed.
+// Returns the cudaError_t of the first launch that failed, else 0.
 int prn_dice_lava_fwd(const void* kernels, const void* feat,
                       const void* onehot, const void* targets,
                       const void* grad, void* out_a, void* out_b,
                       void* out_l, int B, int P, int K, int N, int HW,
                       int grid_x, void* stream) {
-  if (!valid_shape(B, P, N, HW)) return static_cast<int>(cudaErrorInvalidValue);
-  const Args a = make_args(kernels, feat, onehot, targets, grad, B, P, N, HW);
+  if (!valid_shape(B, P, K, N, HW))
+    return static_cast<int>(cudaErrorInvalidValue);
   float* oa = static_cast<float*>(out_a);
   float* ob = static_cast<float*>(out_b);
   float* ol = static_cast<float*>(out_l);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (K) {
-    case 32: return launch_fwd<32>(a, oa, ob, ol, grid_x, s);
-    case 128: return launch_fwd<128>(a, oa, ob, ol, grid_x, s);
-    case 256: return launch_fwd<256>(a, oa, ob, ol, grid_x, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return per_chunk(
+      make_args(kernels, feat, onehot, targets, grad, B, P, N, HW),
+      [&](const Args& a) {
+        switch (K) {
+          case 32: return launch_fwd<32>(a, oa, ob, ol, grid_x, s);
+          case 128: return launch_fwd<128>(a, oa, ob, ol, grid_x, s);
+          default: return launch_fwd<256>(a, oa, ob, ol, grid_x, s);
+        }
+      });
 }
 
 // ga, gb, gl (B, P); dk (B, P, K) zeroed; dm (B, HW, K) fully written.
@@ -1142,20 +1190,23 @@ int prn_dice_lava_bwd(const void* kernels, const void* feat,
                       const void* grad, const void* ga, const void* gb,
                       const void* gl, void* dk, void* dm, int B, int P, int K,
                       int N, int HW, int grid_x, void* stream) {
-  if (!valid_shape(B, P, N, HW)) return static_cast<int>(cudaErrorInvalidValue);
-  const Args a = make_args(kernels, feat, onehot, targets, grad, B, P, N, HW);
+  if (!valid_shape(B, P, K, N, HW))
+    return static_cast<int>(cudaErrorInvalidValue);
   const float* pa = static_cast<const float*>(ga);
   const float* pb = static_cast<const float*>(gb);
   const float* pl = static_cast<const float*>(gl);
   float* odk = static_cast<float*>(dk);
   float* odm = static_cast<float*>(dm);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (K) {
-    case 32: return launch_bwd<32>(a, pa, pb, pl, odk, odm, grid_x, s);
-    case 128: return launch_bwd<128>(a, pa, pb, pl, odk, odm, grid_x, s);
-    case 256: return launch_bwd<256>(a, pa, pb, pl, odk, odm, grid_x, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return per_chunk(
+      make_args(kernels, feat, onehot, targets, grad, B, P, N, HW),
+      [&](const Args& a) {
+        switch (K) {
+          case 32: return launch_bwd<32>(a, pa, pb, pl, odk, odm, grid_x, s);
+          case 128: return launch_bwd<128>(a, pa, pb, pl, odk, odm, grid_x, s);
+          default: return launch_bwd<256>(a, pa, pb, pl, odk, odm, grid_x, s);
+        }
+      });
 }
 
 }  // extern "C"

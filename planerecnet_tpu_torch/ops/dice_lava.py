@@ -28,11 +28,10 @@ import torch
 
 from planerecnet_tpu_torch.ops import cuda_build
 
-# What the kernels take (see csrc/dice_lava.cu): the K of the presets,
-# up to 128 slots, up to 63 instances (N + 1 target rows in 8 n8 blocks).
+# What the kernels take (see csrc/dice_lava.cu): the K of the presets and
+# up to 128 slots; any number of instances (one launch per 63).
 _KERNEL_K = (32, 128, 256)
 _MAX_P = 128
-_MAX_N = 63
 
 
 def _logits_targets(kernels, mask_feat, onehot, targets):
@@ -106,13 +105,12 @@ def _check_cuda(name, tensors):
             raise ValueError(f"{name}: an input is not 16-byte aligned")
 
 
-def _launch_geometry(name, p, k, n, device):
+def _launch_geometry(name, p, k, device):
     """The card's SM count: the kernels' grid is persistent over (image,
     pixel tile), as many blocks as fit on the SMs at once."""
-    if k not in _KERNEL_K or p > _MAX_P or n > _MAX_N:
-        raise ValueError(f"{name}: the kernel takes K in {_KERNEL_K}, "
-                         f"P <= {_MAX_P} and N <= {_MAX_N}, not K={k}, "
-                         f"P={p}, N={n}")
+    if k not in _KERNEL_K or p > _MAX_P:
+        raise ValueError(f"{name}: the kernel takes K in {_KERNEL_K} and "
+                         f"P <= {_MAX_P}, not K={k}, P={p}")
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
@@ -128,7 +126,7 @@ def dice_lava_fwd(kernels, mask_feat, onehot, targets, grad_low):
     ins = (kernels, mask_feat, onehot, targets, grad_low)
     _check_cuda("dice_lava_fwd", ins)
     b, p, k, n, hw = shape
-    grid_x = _launch_geometry("dice_lava_fwd", p, k, n, kernels.device)
+    grid_x = _launch_geometry("dice_lava_fwd", p, k, kernels.device)
     out = torch.zeros((3, b, p), dtype=torch.float32, device=kernels.device)
     with torch.cuda.device(kernels.device):
         stream = torch.cuda.current_stream(kernels.device).cuda_stream
@@ -156,7 +154,7 @@ def dice_lava_bwd(kernels, mask_feat, onehot, targets, grad_low, ga, gb, gl):
             raise ValueError(f"output gradient {tuple(g.shape)} != {(b, p)}")
     ins = (kernels, mask_feat, onehot, targets, grad_low, ga, gb, gl)
     _check_cuda("dice_lava_bwd", ins)
-    grid_x = _launch_geometry("dice_lava_bwd", p, k, n, kernels.device)
+    grid_x = _launch_geometry("dice_lava_bwd", p, k, kernels.device)
     dk = torch.zeros((b, p, k), dtype=torch.float32, device=kernels.device)
     dm = torch.empty((b, hw, k), dtype=torch.float32, device=kernels.device)
     with torch.cuda.device(kernels.device):

@@ -144,6 +144,6 @@ def test_cpu_dispatch_and_checks():
     with pytest.raises(ValueError):
         dice_lava.dice_lava_fwd(*(a.to("meta") for a in args))
     # What the kernels take, checked before anything touches a card.
-    for p, k, n in ((129, 128, 32), (128, 64, 32), (128, 128, 64)):
+    for p, k in ((129, 128), (128, 64)):
         with pytest.raises(ValueError):
-            dice_lava._launch_geometry("dice_lava_fwd", p, k, n, "cuda")
+            dice_lava._launch_geometry("dice_lava_fwd", p, k, "cuda")
