@@ -1,6 +1,11 @@
 """Drive the PyTorch port's inference and training paths on one CUDA card.
 
     python3 chip_smoke.py [--profile DIR]
+    python3 chip_smoke.py --dice
+
+``--dice`` runs phases 1, 2 and the timed dice/lava shapes of 4 alone and
+prints no result line: it times the dice/lava kernels of the package
+beside the script, so that two trees' kernels can be compared on one card.
 
 1. device: the card's name and power limit (nvidia-smi).
 2. build: one ``nvcc`` per source in ``planerecnet_tpu_torch/csrc/``
@@ -19,8 +24,9 @@
    fused dice/lava forward and backward (no single PyTorch call computes
    them) at each K of the presets, P = 100, a ragged HW, fractional
    inputs and N past one launch's 63 instances, then timed at the
-   training shape (one 10-iteration window), bound at the 3xTF32
-   tensor-core rate and at the f32 rate; and the DCN Function's gradients
+   training shape of PRN-50 (K=128) and of the base preset (K=256), one
+   10-iteration window each, bound at the 3xTF32 tensor-core rate and at
+   the f32 rate; and the DCN Function's gradients
    against autograd of the plain forward at a small shape.
 5. inference main path: ``PlaneRecNetRunner(PlaneRecNet_50_config)`` with
    seeded, perturbed weights answers 3 requests of 8 distinct 480x640
@@ -78,6 +84,9 @@ DCN_SHAPES_TRAIN = [
 # W/4); one forward and one backward launch per level, 4 levels.
 DICE = dict(b=8, p=128, k=128, n=32, hw=(TRAIN_SIZE // 4) ** 2)
 DICE_LEVELS = 4
+# The same for the base preset (num_masks 256, 5 levels): timed beside
+# PRN-50's, not on the main path.
+DICE_BASE = dict(DICE, k=256)
 # (H, W, Cin, stride, layers of PRN-50 with this shape); Cout = Cin.
 DCN_SHAPES = [
     (120, 160, 128, 2, 1), (60, 80, 128, 1, 3),
@@ -385,8 +394,9 @@ DICE_CASES = [
 ]
 
 
-def dice_errors(dl, ins, gs, what):
-    """Both kernels against their plain versions; raises past f32 TOL."""
+def dice_errors(dl, ins, gs, what, worst):
+    """Both kernels against their plain versions; raises past f32 TOL.
+    Folds the largest errors into ``worst`` (by kernel: fwd, bwd)."""
     got = dl.dice_lava_fwd(*ins)
     want = dl.fused_dice_lava_plain(*ins)
     got_b = dl.dice_lava_bwd(*ins, *gs)
@@ -406,25 +416,31 @@ def dice_errors(dl, ins, gs, what):
     log(f"[dice] {what}: errors against plain {json.dumps(errs)} (tol {tol} "
         f"of scale); share of the allowance used "
         f"{json.dumps({k: round(v, 3) for k, v in used.items()})}")
-    return errs
+    worst["fwd"] = max(worst["fwd"], errs["a"], errs["b"], errs["lava"])
+    worst["bwd"] = max(worst["bwd"], errs["dk"], errs["dm"])
 
 
-def phase_dice():
+def phase_dice(cases=DICE_CASES):
     """The fused dice/lava forward and backward kernels against their plain
-    versions at every case of DICE_CASES and at the PRN-50 training shape,
-    where they are timed. No single PyTorch call computes either function,
-    so there is no library yardstick. Two bounds: the products at the
-    3xTF32 tensor-core rate (the units they run on) and at the f32 rate."""
+    versions at every case of ``cases`` and at the training shapes of
+    PRN-50 and of the base preset, where they are timed. Returns PRN-50's
+    records, with the worst error of every case."""
     from planerecnet_tpu_torch.ops import dice_lava as dl
     worst = {"fwd": 0.0, "bwd": 0.0}
-    for i, case in enumerate(DICE_CASES):
+    for i, case in enumerate(cases):
         ins, gs = dice_inputs(51 + i, **case)
-        errs = dice_errors(dl, ins, gs, f"{case}")
-        worst["fwd"] = max(worst["fwd"], errs["a"], errs["b"], errs["lava"])
-        worst["bwd"] = max(worst["bwd"], errs["dk"], errs["dm"])
-    d = DICE
-    ins, gs = dice_inputs(50, **d)
-    errs = dice_errors(dl, ins, gs, f"training shape {d}")
+        dice_errors(dl, ins, gs, f"{case}", worst)
+    time_dice(dl, DICE_BASE, seed=49, worst=worst)
+    return time_dice(dl, DICE, seed=50, worst=worst)
+
+
+def time_dice(dl, d, seed, worst):
+    """Both kernels at shape ``d`` against their plain versions, then
+    timed beside them. No single PyTorch call computes either function, so
+    there is no library yardstick. Two bounds: the products at the 3xTF32
+    tensor-core rate (the units they run on) and at the f32 rate."""
+    ins, gs = dice_inputs(seed, **d)
+    dice_errors(dl, ins, gs, f"training shape {d}", worst)
     pq = d["b"] * d["p"] * d["hw"]
     in_bytes = 4 * sum(t.numel() for t in ins)
     out = {}
@@ -442,12 +458,10 @@ def phase_dice():
         nbytes = in_bytes + extra + out_bytes
         b_ms, b_by = bound(nbytes, flops, TF32X3_FLOPS_PER_S)
         f32_ms, f32_by = bound(nbytes, flops)
-        err = (max(errs["a"], errs["b"], errs["lava"]) if name == "fwd"
-               else max(errs["dk"], errs["dm"]))
         out[name] = dict(ms=ms, plain_ms=plain_ms,
                          bound_ms=b_ms, bound_by=b_by, bound_f32_ms=f32_ms,
                          bound_f32_by=f32_by, flops=flops,
-                         max_abs_err=max(err, worst[name]))
+                         max_abs_err=worst[name])
         log(f"[dice] {name} {d}: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"bound {b_ms:.4f} ms at 3xTF32 ({b_by}), {f32_ms:.4f} ms at "
             f"f32 ({f32_by}); {flops / 1e9:.2f} GFLOP, "
@@ -911,6 +925,9 @@ def main():
     phase_build()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if "--dice" in sys.argv:
+        phase_dice(cases=())
+        return 0
     records, worst = phase_kernel(dcn)
     scatter, scatter_err, cols_err_train, cols_train = phase_scatter()
     dice = phase_dice()

@@ -79,15 +79,19 @@
 // to the other stage of a two-stage ring by cp.async (16 B for features,
 // 4 B for the ragged target rows, zero-filled past HW) and land while the
 // current tile is computed; completion is cp.async.wait_group and that
-// barrier (every thread loads a share). A pass over the landed tile writes
-// hi in place and lo to its own buffers (fence.proxy.async, then wgmma
-// reads them). The image's kernel rows are staged once per image.
+// barrier (every thread loads a share). The barrier is needed anyway, to
+// free the stage that the next prefetch overwrites, so an mbarrier for
+// completion would add a wait and remove none. A pass over the landed
+// tile writes hi in place and lo to its own buffers (fence.proxy.async,
+// then wgmma reads them). The image's kernel rows are staged once per
+// image.
 //   Forward: C (16 slots x 8 ceil((N+1)/8) a warp, each tile's part formed
 //   in its own accumulator, then added in f32) and b stay in registers
 //   across the block's tiles of one image; at the end of the image one
 //   reduction over the 4 lanes of a row and one f32 atomic per slot and
 //   quantity.
-//   Backward: dk in registers across tiles (dk^T, 64 a thread), one f32
+//   Backward: dk in registers across tiles (dk^T, 64 a thread; 128 at
+//   K = 256, which fills the 255 registers: see phase_fence), one f32
 //   atomic per element per block and image or 16 tiles; dm for the tile's
 //   pixels is written directly: a block owns all P slots of its pixels, so
 //   dm needs no atomics.
@@ -706,6 +710,21 @@ __device__ __forceinline__ int dl_off(int p, int q) {
     return p * TQ + q;
 }
 
+// A point ptxas does not schedule across: one thread's branch to read the
+// clock (a plain compiler barrier, __syncwarp or a clock read by every
+// thread does not do it). The K = 256 backward keeps 128 dk accumulators
+// a thread in registers; with these points around its dk, dm and flush
+// phases ptxas stops interleaving those phases, which spilled ~1 KB a
+// thread and cost over a quarter of its time (2.21 -> 1.60 ms a launch at
+// B=8, P=128, N=32, HW=25600 on an H100 SXM).
+__device__ __forceinline__ void phase_fence() {
+  if (threadIdx.x == 0) {
+    uint64_t t;
+    asm volatile("mov.u64 %0, %%clock64;" : "=l"(t));
+    asm volatile("" ::"l"(t));
+  }
+}
+
 __device__ __forceinline__ void keep(uint32_t& r) {
   asm volatile("" : "+r"(r)::"memory");
 }
@@ -729,6 +748,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   // registers, dm from the dl tile and the kernel rows.
   constexpr bool kWg = TQ == 32;
   constexpr int DKR = kWg ? 64 : 4 * KS;
+  auto fence = [] {
+    if constexpr (!kWg) phase_fence();
+  };
   extern __shared__ float smem_raw[];
   const Ctx c = make_ctx(smem_raw, K, TQ, a.N, true);
   const int ntiles = (a.HW + TQ - 1) / TQ;
@@ -887,6 +909,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
     }
 
+    fence();
     const float* fh = c.smem + (stage ? c.l.feat1 : c.l.feat0);
     const float* fl = c.smem + c.l.lo;
     if constexpr (!kWg) {
@@ -907,8 +930,10 @@ __global__ void __launch_bounds__(kThreads, 1)
         }
       }
     }
+    fence();
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     __syncthreads();   // the dl tiles are complete
+    fence();
 
     if constexpr (kWg) {
       // dk^T (channels x slots) += feat_tile^T . dl^T: A (channels x
@@ -1065,7 +1090,9 @@ __global__ void __launch_bounds__(kThreads, 1)
           }
       }
     }
+    fence();
     if ((it - beg) % kDkTiles == kDkTiles - 1) flush(cur);
+    fence();
   }
   flush(cur);
 }
@@ -1128,12 +1155,14 @@ Args make_args(const void* kernels, const void* feat, const void* onehot,
               static_cast<const float*>(grad), B, P, N, HW, N, true};
 }
 
+int chunks_of(int N) { return (N + kMaxN - 1) / kMaxN; }
+
 // launch(chunk) for each chunk of a's instances: even chunks of at most
 // kMaxN, the first one the lead (see the header). Stops at the first
 // error.
 template <typename Launch>
 int per_chunk(const Args& a, Launch launch) {
-  const int chunks = (a.N + kMaxN - 1) / kMaxN;
+  const int chunks = chunks_of(a.N);
   const int per = (a.N + chunks - 1) / chunks;
   for (int n0 = 0; n0 < a.N; n0 += per) {
     Args c = a;
@@ -1154,6 +1183,9 @@ bool valid_shape(int B, int P, int K, int N, int HW) {
 }  // namespace
 
 extern "C" {
+
+// Kernel launches of one call of either function below for N instances.
+int prn_dice_lava_launches(int N) { return N >= 1 ? chunks_of(N) : 0; }
 
 // All tensors f32, contiguous, on one card, 16-byte aligned. P <= 128,
 // K in {32, 128, 256} (the presets' kernel widths), any N >= 1 (one

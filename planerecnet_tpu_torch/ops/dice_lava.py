@@ -72,8 +72,10 @@ def _library() -> ctypes.CDLL:
     lib.prn_dice_lava_bwd.argtypes = ([ctypes.c_void_p] * 10
                                       + [ctypes.c_int] * 6
                                       + [ctypes.c_void_p])
-    lib.prn_dice_lava_fwd.restype = ctypes.c_int
-    lib.prn_dice_lava_bwd.restype = ctypes.c_int
+    lib.prn_dice_lava_launches.argtypes = [ctypes.c_int]
+    for fn in (lib.prn_dice_lava_fwd, lib.prn_dice_lava_bwd,
+               lib.prn_dice_lava_launches):
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -135,7 +137,7 @@ def dice_lava_fwd(kernels, mask_feat, onehot, targets, grad_low):
             out[1].data_ptr(), out[2].data_ptr(), b, p, k, n, hw, grid_x,
             stream)
     cuda_build.check_launch(err, "dice_lava_fwd")
-    dice_lava_fwd.launches += 1
+    dice_lava_fwd.launches += _library().prn_dice_lava_launches(n)
     return out[0], out[1], out[2]
 
 
@@ -163,7 +165,7 @@ def dice_lava_bwd(kernels, mask_feat, onehot, targets, grad_low, ga, gb, gl):
             *(t.data_ptr() for t in ins), dk.data_ptr(), dm.data_ptr(),
             b, p, k, n, hw, grid_x, stream)
     cuda_build.check_launch(err, "dice_lava_bwd")
-    dice_lava_bwd.launches += 1
+    dice_lava_bwd.launches += _library().prn_dice_lava_launches(n)
     return dk, dm
 
 
