@@ -2,10 +2,16 @@
 
     python3 chip_smoke.py [--profile DIR]
     python3 chip_smoke.py --dice
+    python3 chip_smoke.py --dcn [--variants]
 
 ``--dice`` runs phases 1, 2 and the timed dice/lava shapes of 4 alone and
-prints no result line: it times the dice/lava kernels of the package
-beside the script, so that two trees' kernels can be compared on one card.
+prints no result line; ``--dcn`` runs phases 1, 2, the im2col's serving
+shapes of 3 and the training shapes of 4 (im2col and scatter, timed beside
+their bounds and library calls) alone and prints no result line. Both time
+the kernels of the package beside the script, so that two trees' kernels
+can be compared on one card. ``--dcn --variants`` adds throwaway builds:
+the im2col without each cache hint and without its gathers, timed beside
+it, and the scatter's cycles per block by phase.
 
 1. device: the card's name and power limit (nvidia-smi).
 2. build: one ``nvcc`` per source in ``planerecnet_tpu_torch/csrc/``
@@ -18,21 +24,29 @@ beside the script, so that two trees' kernels can be compared on one card.
 4. training kernels, each against its plain version at the training shapes
    (batch 8, 640x640) and timed beside it, its bound and, where one exists,
    the one PyTorch call that computes the same function: the DCN
-   input-gradient scatter at the six PRN-50 DCN layer shapes (yardstick
-   ``grid_sampler_2d_backward``), the im2col at those shapes with the real
-   and with a unit mask (timed: the training step's 26 launches), the
-   fused dice/lava forward and backward (no single PyTorch call computes
-   them) at each K of the presets, P = 100, a ragged HW, fractional
-   inputs and N past one launch's 63 instances, then timed at the
-   training shape of PRN-50 (K=128) and of the base preset (K=256), one
-   10-iteration window each, bound at the 3xTF32 tensor-core rate and at
-   the f32 rate; and the DCN Function's gradients
-   against autograd of the plain forward at a small shape.
+   input-gradient scatter at the six PRN-50 DCN layer shapes with offsets
+   of +-8 px (as every earlier run) and +-0.5 px (a training step's
+   spread; yardstick ``grid_sampler_2d_backward``), then at its edge cases
+   (offsets of +-64 px, C = 512 on a small map, C = 30 and 7, tiles that
+   cut output rows, rows in no 3x3 layout); the im2col at those shapes
+   with the real and with a unit mask (timed: the training step's 26
+   launches, beside ``F.grid_sample``), then at its edge cases (a ragged
+   last tile, C = 30, 36 and 514) in f32 and bf16; the fused dice/lava
+   forward and backward (no single PyTorch call computes them) at each K
+   of the presets, P = 100, a ragged HW, fractional inputs and N past one
+   launch's 63 instances, then timed at the training shape of PRN-50
+   (K=128) and of the base preset (K=256), one 10-iteration window each,
+   bound at the 3xTF32 tensor-core rate and at the f32 rate; and the DCN
+   Function's gradients against autograd of the plain forward at a small
+   shape.
 5. inference main path: ``PlaneRecNetRunner(PlaneRecNet_50_config)`` with
    seeded, perturbed weights answers 3 requests of 8 distinct 480x640
    frames; the im2col's launch count must rise by 13 per request.
-6. inference CPU against GPU: the same weights on one smaller frame through
-   the CPU (plain) path and the card (kernel) path.
+6. inference CPU against GPU: the same weights on three smaller frames
+   through the CPU (plain) path and the card (kernel) path. A mask pixel
+   may differ only where the CPU's soft mask lies within the margin of
+   ``mask_thr`` that the raw tolerance allows; the near-threshold flips
+   are counted.
 7. training main path: ``trainer.train_step`` on PlaneRecNet-50, batch 8,
    640x640, f32, all five losses, seeded perturbed weights, one fixed
    synthetic batch in the JAX package's layout: 1 warm-up step, 6 timed
@@ -149,15 +163,19 @@ def phase_build():
         log(rec["log"].strip())
 
 
-def dcn_inputs(h, w, cin, stride, dtype, seed):
+def dcn_inputs(h, w, cin, stride, dtype, seed, spread=8.0, batch=None):
+    """Seeded DCN inputs. Offsets are uniform in +-``spread`` px: 8 (the
+    default, as every earlier run timed) puts some samples outside the map
+    and spreads a row's corners far; a fraction of a pixel is what a
+    training step's offset convs give."""
+    batch = batch or BATCH
     g = torch.Generator(device="cuda").manual_seed(seed)
     ho = (h + 2 - 3) // stride + 1
     wo = (w + 2 - 3) // stride + 1
     kw = dict(device="cuda", generator=g)
-    x = torch.randn(BATCH, h, w, cin, **kw)
-    # Offsets span +-8 px, so some samples fall outside the map.
-    off = (torch.rand(BATCH, ho, wo, 18, **kw) - 0.5) * 16
-    mask = torch.rand(BATCH, ho, wo, 9, **kw) * 2
+    x = torch.randn(batch, h, w, cin, **kw)
+    off = (torch.rand(batch, ho, wo, 18, **kw) - 0.5) * (2 * spread)
+    mask = torch.rand(batch, ho, wo, 9, **kw) * 2
     wt = torch.randn(3, 3, cin, cin, **kw) / (3 * cin ** 0.5)
     bias = torch.randn(cin, **kw)
     return x.to(dtype), off, mask, wt.to(dtype), bias, ho, wo
@@ -264,15 +282,42 @@ def bound(nbytes, flops, rate=F32_FLOPS_PER_S):
                                    else "operations")
 
 
-def phase_scatter():
+def scatter_record(dcn_input_grad, dcn_input_grad_plain, idx, cw, dcols,
+                   h, w, what):
+    """The scatter kernel against its plain version (raises past f32 TOL),
+    then timed beside it and beside its bound for this data: each row read
+    once (corner, weights, channels), dx written once; 2 flops per channel
+    for each corner that is in the map and has a non-zero weight."""
+    tol = TOL[torch.float32]
+    got = dcn_input_grad(idx, cw, dcols, h, w)
+    want = dcn_input_grad_plain(idx, cw, dcols, h, w)
+    torch.cuda.synchronize()
+    err, ok = close_err(got, want, tol)
+    log(f"[scatter] {what}: err {err:.3g} (tol {tol} of scale)")
+    if not ok:
+        raise AssertionError(f"scatter disagrees with plain at {what}")
+    b, _, c = dcols.shape
+    ms = cuda_time_ms(lambda: dcn_input_grad(idx, cw, dcols, h, w))
+    adds = int((cw != 0).sum())   # zero weight: out of map or skipped
+    nbytes = (idx.numel() + cw.numel() + dcols.numel() + b * h * w * c) * 4
+    b_ms, b_by = bound(nbytes, 2 * adds * c)
+    return dict(ms=ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
+                bytes=nbytes)
+
+
+def phase_scatter(cases=True):
     """The DCN input-gradient scatter against its plain version at the six
-    PRN-50 DCN shapes at 640x640; the yardstick is aten's bilinear
-    grid-sampler input gradient over the same points, with the modulation
-    folded into its incoming gradient. At the same shapes the im2col kernel
-    against its plain version, as the training step launches it: with the
-    real mask (forward) and a unit mask (the backward's samples), each
-    launch timed beside its bound. Returns the scatter's records, its worst
-    error, the im2col's worst error and the im2col's training records."""
+    PRN-50 DCN shapes at 640x640, with offsets of +-8 px (as every earlier
+    run timed it) and of +-0.5 px (a training step's spread); the
+    yardstick is aten's bilinear grid-sampler input gradient over the same
+    points, with the modulation folded into its incoming gradient. At the
+    same shapes the im2col kernel against its plain version, as the
+    training step launches it: with the real mask (forward) and a unit
+    mask (the backward's samples), each launch timed beside its bound and
+    beside ``F.grid_sample`` over the same points. With ``cases``, the
+    scatter's edge cases too (``scatter_cases``). Returns the scatter's
+    records, its worst error, the im2col's worst error and the im2col's
+    training records."""
     from planerecnet_tpu_torch.ops import dcn
     from planerecnet_tpu_torch.ops.dcn_scatter import (dcn_input_grad,
                                                        dcn_input_grad_plain)
@@ -300,52 +345,282 @@ def phase_scatter():
         # corner and channel and one for the mask.
         ms = sum(cuda_time_ms(lambda m=m: dcn.deform_im2col(x, off, m, **geom))
                  for m in (mask, torch.ones_like(mask)))
+        xc = x.permute(0, 3, 1, 2).contiguous()
+        grid = grid_for(off, h, w, stride, ho, wo)
+        lib_ms = 2 * cuda_time_ms(lambda: F.grid_sample(
+            xc, grid, mode="bilinear", padding_mode="zeros",
+            align_corners=True))
+        del xc
         nbytes = 4 * (x.numel() + off.numel() + mask.numel()
                       + BATCH * ho * wo * 9 * cin)
         flops = (2 * valid_corners(off, h, w, stride, ho, wo) * cin
                  + BATCH * ho * wo * 9 * cin)
         b_ms, b_by = bound(nbytes, flops)
         cols_train.append(dict(shape=name, layers=layers, ms=ms,
-                               bound_ms=2 * b_ms, bound_by=b_by))
+                               library_ms=lib_ms, bound_ms=2 * b_ms,
+                               bound_by=b_by))
         log(f"[im2col-train] {name}: mask + unit mask {ms:.4f} ms, bound "
-            f"{2 * b_ms:.4f} ms ({b_by})")
+            f"{2 * b_ms:.4f} ms ({b_by}), grid_sample x2 {lib_ms:.4f} ms")
+
         idx, cw = dcn.scatter_inputs(off, mask, h, w, stride=stride)
         g = torch.Generator(device="cuda").manual_seed(40 + i)
-        r = ho * wo * 9
-        dcols = torch.randn(BATCH, r, cin, device="cuda", generator=g)
-        got = dcn_input_grad(idx, cw, dcols, h, w)
-        want = dcn_input_grad_plain(idx, cw, dcols, h, w)
-        torch.cuda.synchronize()
-        err, ok = close_err(got, want, tol)
-        log(f"[scatter] {name}: err {err:.3g} (tol {tol} of scale)")
-        if not ok:
-            raise AssertionError(f"scatter disagrees with plain at {name}")
-        worst = max(worst, err)
+        dcols = torch.randn(BATCH, ho * wo * 9, cin, device="cuda",
+                            generator=g)
+        rec = scatter_record(dcn_input_grad, dcn_input_grad_plain, idx, cw,
+                             dcols, h, w, f"{name} +-8 px")
+        worst = max(worst, rec["max_abs_err"])
         grad_out = (dcols.reshape(BATCH, ho * wo, 9, cin)
                     * mask.reshape(BATCH, ho * wo, 9, 1)).permute(
                         0, 3, 1, 2).contiguous()
-        grid = grid_for(off, h, w, stride, ho, wo)
         inp = torch.empty(BATCH, cin, h, w, device="cuda")
-        ms = cuda_time_ms(lambda: dcn_input_grad(idx, cw, dcols, h, w))
         plain_ms = cuda_time_ms(
             lambda: dcn_input_grad_plain(idx, cw, dcols, h, w), iters=5)
         lib_ms = cuda_time_ms(lambda: torch.ops.aten.grid_sampler_2d_backward(
             grad_out, inp, grid, 0, 0, True, [True, False]))
-        # Count what this data needs: each row read once (corner, weights,
-        # channels), dx written once; 2 flops per channel for each corner
-        # that is in the map and has a non-zero weight.
-        adds = int((cw != 0).sum())   # zero weight: out of map or skipped
-        nbytes = (idx.numel() * 4 + cw.numel() * 4 + dcols.numel() * 4
-                  + BATCH * h * w * cin * 4)
-        b_ms, b_by = bound(nbytes, 2 * adds * cin)
-        rec = dict(shape=name, layers=layers, ms=ms, plain_ms=plain_ms,
-                   library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
-                   max_abs_err=err)
-        log(f"[scatter] {name}: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"grid_sampler_2d_backward {lib_ms:.4f} ms, bound {b_ms:.4f} ms "
-            f"({b_by}), {nbytes / ms / 1e6:.1f} GB/s achieved")
+        del grad_out, inp, x
+        # The training step's spread: the window path carries the corners.
+        _, off_f, mask_f, _, _, _, _ = dcn_inputs(
+            h, w, 8, stride, torch.float32, seed=60 + i, spread=0.5)
+        idx_f, cw_f = dcn.scatter_inputs(off_f, mask_f, h, w, stride=stride)
+        frac = scatter_record(dcn_input_grad, dcn_input_grad_plain, idx_f,
+                              cw_f, dcols, h, w, f"{name} +-0.5 px")
+        worst = max(worst, frac["max_abs_err"])
+        rec.update(shape=name, layers=layers, plain_ms=plain_ms,
+                   library_ms=lib_ms, fractional_ms=frac["ms"],
+                   fractional_bound_ms=frac["bound_ms"])
+        log(f"[scatter] {name}: +-8 px {rec['ms']:.4f} ms, +-0.5 px "
+            f"{frac['ms']:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"grid_sampler_2d_backward {lib_ms:.4f} ms, bound "
+            f"{rec['bound_ms']:.4f} / {frac['bound_ms']:.4f} ms "
+            f"({rec['bound_by']}), {rec['bytes'] / rec['ms'] / 1e6:.1f} / "
+            f"{frac['bytes'] / frac['ms'] / 1e6:.1f} GB/s achieved")
         records.append(rec)
+        del idx, cw, dcols, idx_f, cw_f
+    if cases:
+        worst = max(worst, scatter_cases(dcn, dcn_input_grad,
+                                         dcn_input_grad_plain))
     return records, worst, worst_cols, cols_train
+
+
+# (what, batch, H, W, C, stride, offset spread in px, rows dropped from the
+# end of each image). Rows dropped: R fits no 3x3 layout, so the plan cuts
+# the rows into flat tiles, whose edges cut output rows and pixels.
+SCATTER_CASES = [
+    ("overflow, +-64 px: most corners leave every window",
+     8, 80, 80, 128, 1, 64.0, 0),
+    ("C=512 on a small map", 2, 12, 10, 512, 1, 0.5, 0),
+    ("C=30, not a multiple of 4: scalar lanes", 2, 17, 23, 30, 1, 2.0, 0),
+    ("C=7, stride 2: scalar lanes", 2, 17, 23, 7, 2, 0.5, 0),
+    ("Wo=45: tiles across cut output rows", 2, 37, 45, 64, 1, 0.5, 0),
+    ("rows in no 3x3 layout: flat tiles cut output rows", 2, 37, 45, 64, 1,
+     0.5, 5),
+]
+
+
+def scatter_cases(dcn, dcn_input_grad, dcn_input_grad_plain):
+    """The scatter against its plain version where its tiles and windows
+    can go wrong (``SCATTER_CASES``); returns the worst error."""
+    from planerecnet_tpu_torch.ops.dcn_scatter import scatter_plan
+    worst, tol = 0.0, TOL[torch.float32]
+    for i, (what, b, h, w, c, stride, spread, drop) in enumerate(
+            SCATTER_CASES):
+        _, off, mask, _, _, ho, wo = dcn_inputs(
+            h, w, 4, stride, torch.float32, seed=80 + i, spread=spread,
+            batch=b)
+        idx, cw = dcn.scatter_inputs(off, mask, h, w, stride=stride)
+        r = ho * wo * 9 - drop
+        idx, cw = idx[:, :r].contiguous(), cw[:, :r].contiguous()
+        g = torch.Generator(device="cuda").manual_seed(90 + i)
+        dcols = torch.randn(b, r, c, device="cuda", generator=g)
+        plan = scatter_plan(b, r, h, w, c)
+        if drop and plan.period != r:
+            raise AssertionError(f"{what}: expected flat tiles, got {plan}")
+        got = dcn_input_grad(idx, cw, dcols, h, w)
+        want = dcn_input_grad_plain(idx, cw, dcols, h, w)
+        torch.cuda.synchronize()
+        err, ok = close_err(got, want, tol)
+        log(f"[scatter-case] {what} ({b}x{h}x{w}x{c}/s{stride}, R={r}, "
+            f"{plan}): err {err:.3g} (tol {tol} of scale)")
+        if not ok or not torch.isfinite(got).all():
+            raise AssertionError(f"scatter disagrees with plain: {what}")
+        worst = max(worst, err)
+    return worst
+
+
+# (what, batch, H, W, C, stride, offset spread in px): where the im2col's
+# tiles and vectors can go wrong, each in f32 and bf16.
+IM2COL_CASES = [
+    ("ragged last tile (3x17x23 pixels)", 3, 17, 23, 128, 1, 2.0),
+    ("C=30: no 16-byte vector in f32 or bf16", 2, 17, 23, 30, 2, 2.0),
+    ("C=36: vectors in f32, not in bf16", 2, 9, 11, 36, 1, 3.0),
+    ("C=514: scalar rows longer than the block", 2, 9, 11, 514, 2, 3.0),
+]
+
+
+def im2col_cases(dcn):
+    """The im2col against its plain version at ``IM2COL_CASES``, f32 and
+    bf16; returns the worst f32 error."""
+    worst = 0.0
+    for i, (what, b, h, w, c, stride, spread) in enumerate(IM2COL_CASES):
+        for dtype in (torch.float32, torch.bfloat16):
+            x, off, mask, _, _, _, _ = dcn_inputs(
+                h, w, c, stride, dtype, seed=70 + i, spread=spread, batch=b)
+            kw = dict(stride=stride, padding=1, kernel_size=3)
+            got = dcn.deform_im2col(x, off, mask, **kw)
+            want = dcn.deform_im2col_plain(x, off, mask, **kw)
+            torch.cuda.synchronize()
+            err, ok = close_err(got, want, TOL[dtype])
+            log(f"[im2col-case] {what} {str(dtype)[6:]}: err {err:.3g} (tol "
+                f"{TOL[dtype]} of scale)")
+            if not ok or not torch.isfinite(got).all():
+                raise AssertionError(f"im2col disagrees with plain: {what} "
+                                     f"{dtype}")
+            if dtype == torch.float32:
+                worst = max(worst, err)
+    return worst
+
+
+# Throwaway variants of the DCN kernels, made by editing the sources' text
+# (``--dcn --variants``): what each cache hint and the corner gathers cost
+# the im2col, and where the scatter's block spends its cycles.
+IM2COL_VARIANTS = {
+    "default store policy": [("st.global.cs.", "st.global.")],
+    "no L2 evict_last hint": [(".L2::cache_hint", ""), (", %5;", ";"),
+                              (", %2;", ";")],
+    "no corner gathers": [("if (a[corner] >= 0) {", "if (false) {")],
+}
+# The scatter's phases, closed by a barrier and clocked by thread 0: (text
+# the clock read follows, or precedes if it is a comment; slot; phase).
+SCATTER_PHASES = [
+    ("  copy_slice(0);\n", 1, "load + start the first copy"),
+    ("  const int wy = s_win[0], wx = s_win[1], nh = s_win[2], "
+     "nw = s_win[3];\n", 2, "box + window"),
+    ("  // 5. For each slice", 3, "count + sort"),
+    ("    __syncthreads();  // before the next copy overwrites this buffer\n"
+     "  }\n", 4, "slices: copy, sum, flush"),
+]
+
+
+def scatter_clock_source(src):
+    """``csrc/dcn_scatter.cu`` with thread 0 adding each phase's cycles to a
+    device array (slot 0 counts blocks), read back and zeroed by
+    ``prn_read_phases``."""
+    def clocked(slot):
+        return ("  __syncthreads();\n  if (threadIdx.x == 0) { long long t = "
+                f"clock64(); atomicAdd(&g_phase[{slot}], (unsigned long long)"
+                "(t - t_prev)); t_prev = t; }\n")
+
+    start = "  // 1. Load this thread"
+    for text in [start] + [t for t, _, _ in SCATTER_PHASES]:
+        if src.count(text) != 1:
+            raise AssertionError(f"dcn_scatter.cu changed: {text!r}")
+    src = src.replace("namespace {\n", "namespace {\n__device__ unsigned "
+                      "long long g_phase[8];\n", 1)
+    src = src.replace(start, "  long long t_prev = clock64();\n" + start)
+    for text, slot, _ in SCATTER_PHASES:
+        src = src.replace(text, clocked(slot) + text if text.startswith("  //")
+                          else text + clocked(slot))
+    src = src.replace(SCATTER_PHASES[-1][0] + clocked(4),
+                      SCATTER_PHASES[-1][0] + clocked(4) + (
+                          "  if (threadIdx.x == 0) atomicAdd(&g_phase[0], "
+                          "1ull);\n"))
+    return src + (
+        "\nextern \"C\" int prn_read_phases(unsigned long long* out) {\n"
+        "  cudaDeviceSynchronize();\n"
+        "  cudaMemcpyFromSymbol(out, g_phase, sizeof(g_phase));\n"
+        "  unsigned long long z[8] = {0};\n"
+        "  return cudaMemcpyToSymbol(g_phase, z, sizeof(z));\n}\n")
+
+
+def build_variants(name, sources):
+    """Compile each {label: source text} of ``csrc/<name>.cu`` in parallel
+    with the package's flags into ``_build/variants/``; {label: CDLL}."""
+    import ctypes
+    import os
+    from planerecnet_tpu_torch.ops import cuda_build
+    out_dir = cuda_build.BUILD_DIR / "variants"
+    os.makedirs(out_dir, exist_ok=True)
+    procs = {}
+    for i, (label, text) in enumerate(sources.items()):
+        src = out_dir / f"{name}_{i}.cu"
+        src.write_text(text)
+        procs[label] = (subprocess.Popen(
+            [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o",
+             str(src.with_suffix(".so")), str(src)], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True), src.with_suffix(".so"))
+    libs = {}
+    for label, (proc, lib) in procs.items():
+        log_text, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"variant {label!r} of {name}.cu: {log_text}")
+        libs[label] = ctypes.CDLL(str(lib))
+    return libs
+
+
+def phase_variants():
+    """The im2col as committed and in each of ``IM2COL_VARIANTS``, timed
+    alternately at the training (mask and unit mask) and serving shapes;
+    then the scatter's phase cycles per block at the training shapes with
+    offsets of +-0.5 and +-8 px."""
+    import ctypes
+    from planerecnet_tpu_torch.ops import cuda_build, dcn
+    from planerecnet_tpu_torch.ops.dcn_scatter import scatter_plan
+    src = (cuda_build.CSRC_DIR / "dcn_im2col.cu").read_text()
+    texts = {"committed": src}
+    for label, edits in IM2COL_VARIANTS.items():
+        text = src
+        for old, new in edits:
+            if old not in text:
+                raise AssertionError(f"dcn_im2col.cu changed: {old!r}")
+            text = text.replace(old, new)
+        texts[label] = text
+    libs = build_variants("dcn_im2col", texts)
+    for lib in libs.values():
+        lib.prn_dcn_im2col_f32.argtypes = ([ctypes.c_void_p] * 4
+                                           + [ctypes.c_int] * 9
+                                           + [ctypes.c_void_p])
+    for what, shapes, launches in (("train", DCN_SHAPES_TRAIN, 2),
+                                   ("serve", DCN_SHAPES, 1)):
+        totals = {label: 0.0 for label in libs}
+        for i, (h, w, cin, stride, layers) in enumerate(shapes):
+            x, off, mask, _, _, ho, wo = dcn_inputs(h, w, cin, stride,
+                                                    torch.float32, seed=i)
+            cols = torch.empty(BATCH, ho * wo, 9 * cin, device="cuda")
+            stream = torch.cuda.current_stream().cuda_stream
+            for label, lib in libs.items():
+                totals[label] += launches * layers * cuda_time_ms(
+                    lambda lib=lib: lib.prn_dcn_im2col_f32(
+                        x.data_ptr(), off.data_ptr(), mask.data_ptr(),
+                        cols.data_ptr(), BATCH, h, w, cin, ho, wo, 3, stride,
+                        1, stream))
+            del x, cols
+        log(f"[variants] im2col, {what} (ms per "
+            f"{'step' if what == 'train' else 'request'}, +-8 px): "
+            + json.dumps({k: round(v, 4) for k, v in totals.items()}))
+    clock = build_variants("dcn_scatter", {"clock": scatter_clock_source(
+        (cuda_build.CSRC_DIR / "dcn_scatter.cu").read_text())})["clock"]
+    clock.prn_dcn_scatter_f32.argtypes = ([ctypes.c_void_p] * 4
+                                          + [ctypes.c_int] * 12
+                                          + [ctypes.c_void_p])
+    buf = (ctypes.c_ulonglong * 8)()
+    for spread in (0.5, 8.0):
+        for i, (h, w, cin, stride, _) in enumerate(DCN_SHAPES_TRAIN):
+            _, off, mask, _, _, ho, wo = dcn_inputs(
+                h, w, 4, stride, torch.float32, seed=20 + i, spread=spread)
+            idx, cw = dcn.scatter_inputs(off, mask, h, w, stride=stride)
+            dcols = torch.randn(BATCH, idx.shape[1], cin, device="cuda")
+            dx = torch.zeros(BATCH, h, w, cin, device="cuda")
+            plan = scatter_plan(BATCH, idx.shape[1], h, w, cin)
+            clock.prn_read_phases(buf)
+            clock.prn_dcn_scatter_f32(
+                idx.data_ptr(), cw.data_ptr(), dcols.data_ptr(), dx.data_ptr(),
+                BATCH, idx.shape[1], h, w, cin, *plan,
+                torch.cuda.current_stream().cuda_stream)
+            clock.prn_read_phases(buf)
+            cycles = {name: round(buf[slot] / buf[0])
+                      for _, slot, name in SCATTER_PHASES}
+            log(f"[variants] scatter {h}x{w}x{cin}/s{stride} +-{spread} px, "
+                f"{plan}: cycles per block by phase {json.dumps(cycles)}")
 
 
 def dice_inputs(seed, b, p, k, n, hw, kind="onehot"):
@@ -583,10 +858,82 @@ def phase_main(dcn, cfg, card):
     return runner, launches, ms
 
 
+# Raw predictions, CPU against card: f32 on both, summed in other orders
+# (~1e-5 of scale measured); 1e-3 leaves room for rounding that the 13 DCN
+# layers' offset paths amplify.
+RAW_TOL = 1e-3
+CPU_VS_GPU_FRAMES = (99, 100, 101)   # frame seeds
+
+
+def soft_change_bound(kernels, feat, kernel_scale, feat_scale, tol=RAW_TOL):
+    """How far sigmoid(kernels @ feat^T) can move, per (detection, pixel),
+    when every element v of kernels and of feat moves by at most
+    tol * (scale + |v|), the raw check's criterion, with ``kernel_scale``
+    (per detection) and ``feat_scale`` the scales of the tensors the check
+    holds them in. With a = tol * (scale + |k|) and b = tol * (scale +
+    |f|), the logit moves by at most sum (|k| + a)(|f| + b) - |k||f|, and
+    the sigmoid by a quarter of that. Float64."""
+    k = kernels.double().abs()
+    f = feat.double().abs()
+    a = tol * (kernel_scale.double()[:, None] + k)
+    b = tol * (float(feat_scale) + f)
+    return ((k + a) @ (f + b).T - k @ f.T) / 4
+
+
+def near_threshold_flips(got, want, soft, margin, thr):
+    """Pixels where the card's and the CPU's binary masks differ, told apart
+    by the CPU's soft value: within ``margin`` of ``thr`` rounding may flip
+    the pixel, outside it only a fault can. Returns the counts and the
+    largest distance from ``thr`` of a differing pixel."""
+    diff = got != want
+    dist = (soft - thr).abs()
+    near = dist <= margin
+    return {"differing": int(diff.sum()),
+            "near_threshold": int((diff & near).sum()),
+            "outside_margin": int((diff & ~near).sum()),
+            "pixels_within_margin": int(near.sum()),
+            "max_distance": float(dist[diff].max()) if diff.any() else 0.0,
+            "max_margin": float(margin.max()) if margin.numel() else 0.0}
+
+
+def soft_masks_and_margin(raw, cfg, size):
+    """Image 0 of a CPU raw-pred dict: the resized soft masks of the
+    detections the post-processing keeps (the port's ``select_masks``, as
+    ``infer`` runs it) and, per pixel, the margin within which a raw error
+    under RAW_TOL can move them (``soft_change_bound`` resized the same
+    way, its weights being non-negative, plus 1e-6 for the two devices'
+    own f32 rounding of the sigmoid and the resize)."""
+    from planerecnet_tpu_torch.ops.image import resize_bilinear
+    from planerecnet_tpu_torch.ops.postprocess import (flatten_level_preds,
+                                                       select_masks)
+    sv = cfg.solov2
+    nk = sv.num_kernels
+    cates, kernels = flatten_level_preds(raw["cate_preds"],
+                                         raw["kernel_preds"],
+                                         cfg.num_classes, nk)
+    feat = raw["mask_pred"][0]
+    hm, wm, _ = feat.shape
+    _, _, cells, seg_sig, valid, _ = select_masks(
+        cates[0], kernels[0], feat, cfg, len(raw["cate_preds"]))
+    level_scale = torch.cat([torch.full((kp[0].numel() // nk,),
+                                        float(kp.abs().max()))
+                             for kp in raw["kernel_preds"]])
+    bound = soft_change_bound(kernels[0][cells], feat.reshape(-1, nk),
+                              level_scale[cells],
+                              raw["mask_pred"].abs().max())
+    soft = resize_bilinear(seg_sig.reshape(-1, 1, hm, wm), size)[:, 0]
+    margin = resize_bilinear(bound.float().reshape(-1, 1, hm, wm),
+                             size)[:, 0] + 1e-6
+    return soft, margin, valid
+
+
 def phase_cpu_vs_gpu(runner, cfg):
-    """One 256x320 frame through the CPU (plain) and card (kernel) paths
+    """Three 256x320 frames through the CPU (plain) and card (kernel) paths
     with the same weights, TF32 off; thresholds lowered so that detections
-    exist to compare."""
+    exist to compare. A mask pixel may differ only where the CPU's soft
+    value lies within the margin that the raw tolerance allows of
+    ``mask_thr`` (``soft_masks_and_margin``); any other differing pixel
+    fails."""
     from planerecnet_tpu_torch.ops.image import fast_base_transform
     from planerecnet_tpu_torch.runner import PlaneRecNetRunner
     low = cfg.copy(dict(solov2=cfg.solov2.copy(dict(score_thr=0.003,
@@ -595,55 +942,76 @@ def phase_cpu_vs_gpu(runner, cfg):
             torch.backends.cuda.matmul.allow_tf32)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    x = frames(1, 256, 320, seed=99)
     weights = runner.model.state_dict()
     gpu = PlaneRecNetRunner(low, device="cuda")
     gpu.model.load_state_dict(weights)
     cpu = PlaneRecNetRunner(low, device="cpu")
     cpu.model.load_state_dict(weights)
-    t0 = time.perf_counter()
-    want = cpu.infer(x)
-    cpu_s = time.perf_counter() - t0
-    got = {k: v.cpu() for k, v in gpu.infer(x).items()}
-    normalised = fast_base_transform(torch.from_numpy(x))
-    raw_w = cpu.forward_raw(normalised)
-    raw_g = gpu.forward_raw(normalised)
+    for seed in CPU_VS_GPU_FRAMES:
+        x = frames(1, 256, 320, seed=seed)
+        t0 = time.perf_counter()
+        want = cpu.infer(x)
+        cpu_s = time.perf_counter() - t0
+        got = {k: v.cpu() for k, v in gpu.infer(x).items()}
+        normalised = fast_base_transform(torch.from_numpy(x))
+        raw_w = cpu.forward_raw(normalised)
+        raw_g = gpu.forward_raw(normalised)
+        errs = {}
+        for key in ("cate_preds", "kernel_preds", "mask_pred", "depth_pred"):
+            a = raw_g[key] if isinstance(raw_g[key], list) else [raw_g[key]]
+            b = raw_w[key] if isinstance(raw_w[key], list) else [raw_w[key]]
+            for i, (g, w) in enumerate(zip(a, b)):
+                e, ok = close_err(g.cpu(), w, RAW_TOL)
+                errs[f"{key}[{i}]"] = e
+                if not ok:
+                    raise AssertionError(f"frame {seed}: raw {key}[{i}] CPU "
+                                         f"vs GPU err {e}")
+        e_depth, ok = close_err(got["pred_depth"], want["pred_depth"], 1e-3)
+        if not ok:
+            raise AssertionError(f"frame {seed}: pred_depth CPU vs GPU err "
+                                 f"{e_depth}")
+        if not torch.equal(got["pred_valid"], want["pred_valid"]):
+            raise AssertionError(f"frame {seed}: pred_valid differs between "
+                                 f"CPU and GPU")
+        valid = want["pred_valid"]
+        if int(valid.sum()) == 0:
+            raise AssertionError(f"frame {seed}: no valid detection to "
+                                 f"compare")
+        e_scores, ok = close_err(got["pred_scores"], want["pred_scores"],
+                                 1e-3)
+        if not ok:
+            raise AssertionError(f"frame {seed}: pred_scores CPU vs GPU err "
+                                 f"{e_scores}")
+        if not torch.equal(got["pred_classes"][valid],
+                           want["pred_classes"][valid]):
+            raise AssertionError(f"frame {seed}: pred_classes differ between "
+                                 f"CPU and GPU")
+        soft, margin, kept = soft_masks_and_margin(raw_w, low, (256, 320))
+        if not torch.equal(kept, valid[0]):
+            raise AssertionError(f"frame {seed}: the recomputed detections "
+                                 f"are not the CPU's")
+        v = valid[0]
+        count = near_threshold_flips(got["pred_masks"][0][v],
+                                     want["pred_masks"][0][v], soft[v],
+                                     margin[v], low.solov2.mask_thr)
+        frac = count["differing"] / max(1, int(v.sum()) * 256 * 320)
+        log(f"[cpu-vs-gpu] frame {seed}, 1x256x320, TF32 off: CPU "
+            f"{cpu_s:.1f} s; {int(valid.sum())} valid detections agree; "
+            f"depth err {e_depth:.3g}, score err {e_scores:.3g}; mask pixels "
+            f"differing {count['differing']} ({frac:.2e}), near-threshold "
+            f"flips (within the margin of mask_thr) "
+            f"{count['near_threshold']}, outside the margin "
+            f"{count['outside_margin']}; largest distance of a differing "
+            f"pixel's CPU soft value from mask_thr "
+            f"{count['max_distance']:.3g} (margin up to "
+            f"{count['max_margin']:.3g}; {count['pixels_within_margin']} "
+            f"pixels within it); raw errs {json.dumps(errs)}")
+        if count["outside_margin"]:
+            raise AssertionError(f"frame {seed}: {count['outside_margin']} "
+                                 f"mask pixels differ outside the rounding "
+                                 f"margin of mask_thr")
     (torch.backends.cudnn.allow_tf32,
      torch.backends.cuda.matmul.allow_tf32) = tf32
-
-    # Raw predictions: f32 on both, summed in other orders (~1e-5 of scale
-    # measured); 1e-3 leaves room for rounding that the 13 DCN layers'
-    # offset paths amplify.
-    errs = {}
-    for key in ("cate_preds", "kernel_preds", "mask_pred", "depth_pred"):
-        a = raw_g[key] if isinstance(raw_g[key], list) else [raw_g[key]]
-        b = raw_w[key] if isinstance(raw_w[key], list) else [raw_w[key]]
-        for i, (g, w) in enumerate(zip(a, b)):
-            e, ok = close_err(g.cpu(), w, 1e-3)
-            errs[f"{key}[{i}]"] = e
-            if not ok:
-                raise AssertionError(f"raw {key}[{i}] CPU vs GPU err {e}")
-    e_depth, ok = close_err(got["pred_depth"], want["pred_depth"], 1e-3)
-    if not ok:
-        raise AssertionError(f"pred_depth CPU vs GPU err {e_depth}")
-    if not torch.equal(got["pred_valid"], want["pred_valid"]):
-        raise AssertionError("pred_valid differs between CPU and GPU")
-    valid = want["pred_valid"]
-    if int(valid.sum()) == 0:
-        raise AssertionError("no valid detection to compare")
-    e_scores, ok = close_err(got["pred_scores"], want["pred_scores"], 1e-3)
-    if not ok:
-        raise AssertionError(f"pred_scores CPU vs GPU err {e_scores}")
-    if not torch.equal(got["pred_classes"][valid], want["pred_classes"][valid]):
-        raise AssertionError("pred_classes differ between CPU and GPU")
-    diff = (got["pred_masks"] != want["pred_masks"])[valid]
-    frac = float(diff.float().mean())
-    if frac > 1e-3:
-        raise AssertionError(f"{frac:.2e} of mask pixels differ")
-    log(f"[cpu-vs-gpu] 1x256x320, TF32 off: CPU {cpu_s:.1f} s; "
-        f"{int(valid.sum())} valid detections agree; depth err "
-        f"{e_depth:.3g}, score err {e_scores:.3g}, mask pixels differing "
-        f"{frac:.2e}; raw errs {json.dumps(errs)}")
 
 
 def synthetic_batch(b, size, n_cap, seed):
@@ -928,8 +1296,29 @@ def main():
     if "--dice" in sys.argv:
         phase_dice(cases=())
         return 0
+    cases = "--dcn" not in sys.argv
     records, worst = phase_kernel(dcn)
-    scatter, scatter_err, cols_err_train, cols_train = phase_scatter()
+    scatter, scatter_err, cols_err_train, cols_train = phase_scatter(cases)
+
+    def total(recs, key):
+        return sum(r[key] * r["layers"] for r in recs)
+
+    log(f"[dcn] {card}: im2col {total(records, 'ms'):.4f} ms/request "
+        f"(bound {total(records, 'bound_ms'):.4f}, grid_sample "
+        f"{total(records, 'library_ms'):.4f}), "
+        f"{total(cols_train, 'ms'):.4f} ms/step (bound "
+        f"{total(cols_train, 'bound_ms'):.4f}, grid_sample "
+        f"{total(cols_train, 'library_ms'):.4f}); scatter "
+        f"{total(scatter, 'ms'):.4f} ms/step at +-8 px (bound "
+        f"{total(scatter, 'bound_ms'):.4f}, grid_sampler_2d_backward "
+        f"{total(scatter, 'library_ms'):.4f}), "
+        f"{total(scatter, 'fractional_ms'):.4f} at +-0.5 px (bound "
+        f"{total(scatter, 'fractional_bound_ms'):.4f})")
+    if not cases:
+        if "--variants" in sys.argv:
+            phase_variants()
+        return 0
+    worst = max(worst, im2col_cases(dcn))
     dice = phase_dice()
     phase_dcn_grads()
     torch.backends.cudnn.allow_tf32 = True      # PyTorch's default
@@ -948,9 +1337,6 @@ def main():
         runner = PlaneRecNetRunner(PlaneRecNet_50_config, device="cuda")
         perturb_(runner.model, seed=1)
         phase_profile(runner, out_dir)
-
-    def total(recs, key):
-        return sum(r[key] * r["layers"] for r in recs)
 
     def bound_by(recs):
         return ("bytes" if all(r["bound_by"] == "bytes" for r in recs)
@@ -999,6 +1385,7 @@ def main():
         "library_ms": total(records, "library_ms"),
         "train_step_ms": total(cols_train, "ms"),
         "train_step_bound_ms": total(cols_train, "bound_ms"),
+        "train_step_library_ms": total(cols_train, "library_ms"),
         "per": f"times: one request, the {DCN_LAYERS_PRN50} PRN-50 DCN "
                f"layers at batch {BATCH}, {HEIGHT}x{WIDTH}, f32; train_step_*: "
                f"the {2 * DCN_LAYERS_PRN50} launches of {train_per}; launches: "
@@ -1019,7 +1406,10 @@ def main():
         "library_ms": total(scatter, "library_ms"),
         "library": "torch.ops.aten.grid_sampler_2d_backward (bilinear, "
                    "zeros, align_corners=True, input gradient only)",
-        "per": f"{train_per}: its {DCN_LAYERS_PRN50} DCN layers",
+        "fractional_ms": total(scatter, "fractional_ms"),
+        "fractional_bound_ms": total(scatter, "fractional_bound_ms"),
+        "per": f"{train_per}: its {DCN_LAYERS_PRN50} DCN layers; ms, "
+               f"bound_ms at offsets of +-8 px, fractional_* at +-0.5 px",
         "card": card,
     }, *dice_rows]}), flush=True)
     print(json.dumps({"ok": True, "device": {

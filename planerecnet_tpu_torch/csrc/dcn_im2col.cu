@@ -11,22 +11,41 @@
 // For batch b, output pixel p = (oy, ox) and tap k = (ky, kx):
 //   sy = oy*stride - pad + ky + offset[b, p, 2k]
 //   sx = ox*stride - pad + kx + offset[b, p, 2k+1]
-//   cols[b, p, k*C + c] = mask[b, p, k] *
-//       sum over the corners (00, 01, 10, 11) of w_corner * x[b, y, x, c]
+//   cols[b, p, k*C + c] = sum over the corners (00, 01, 10, 11) of
+//       (w_corner * mask[b, p, k]) * x[b, y, x, c]
 // where a corner outside the image has weight 0. The cols layout is the
 // one that weight.reshape(K*C, Cout) of an HWIO kernel expects.
 //
-// What bounds it: bytes. It does ~12 flops per sampled value against at
+// What bounds it: bytes. It does ~9 flops per sampled value against at
 // least 2 bytes moved per value, far under the card's ~20 flops/byte f32
-// balance point, and the cols it writes are 9x the input. The design does
-// one 16-byte load per valid corner and one 16-byte store per thread: a
-// thread owns one 16-byte vector of channels of one (b, p, k) row, so
-// neighbouring threads read neighbouring channels of the same corner pixel
-// (NHWC makes each corner one contiguous C vector) and write neighbouring
-// addresses of cols. The geometry of a row (offsets, mask, corner weights)
-// is recomputed by each thread of the row from broadcast loads rather than
-// shared through shared memory: it costs a few flops and no barrier.
-// Accumulation is in f32 for both f32 and bf16 inputs.
+// balance point, and the cols it writes are 9x the input. The first port
+// (one thread per 16-byte vector of one (pixel, tap) row) reached 41-54%
+// of that bound: each thread did ~7 integer divisions, recomputed the
+// row's geometry that its 31 neighbours also computed, and ran one chain
+// of dependent loads (offset, then corners, then the store) at a time.
+// This design:
+//   - a block owns a tile of output pixels (8, 16 or 32, across images)
+//     with all their taps; it stages the tile's offsets and mask, which
+//     are contiguous, into shared memory with coalesced loads;
+//   - one thread per (pixel, tap) row then computes the row's four corner
+//     offsets (-1 where the corner is outside the map) and four weights,
+//     the mask folded in, into shared memory, once;
+//   - the threads stream (row, 16-byte vector) pairs with no division in
+//     the loop, four rows a thread in flight (two for bf16): up to sixteen
+//     independent 16-byte corner loads before the first add;
+//   - x is read through L1 with an L2 evict_last policy (createpolicy), so
+//     that the corner gathers, which read each input vector up to 4x per
+//     sample and ~36x over the taps of neighbouring pixels, stay in L2;
+//     cols, written once and read only by the matmul, is stored with the
+//     streaming hint (st.global.cs) so that it does not evict x.
+// Where the time goes (chip_smoke.py --dcn --variants, which builds
+// throwaway edits of this file): without the corner gathers the kernel
+// takes ~70% of its time, within a few per cent of its bytes bound, so
+// the stores of cols set the pace; the default store policy costs ~2% and
+// dropping the L2 hint ~1.5%. Neither hint moved a serving request's
+// device time measurably.
+// C not a multiple of the vector, or a misaligned pointer, takes the same
+// kernel one element a lane. Accumulation is in f32 for f32 and bf16 x.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -34,6 +53,8 @@
 #include <cstdint>
 
 namespace {
+
+constexpr int kThreads = 256;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
@@ -57,65 +78,187 @@ struct alignas(sizeof(T) * VEC) Pack {
   T v[VEC];
 };
 
+__device__ __forceinline__ uint64_t evict_last_policy() {
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;"
+               : "=l"(policy));
+  return policy;
+}
+
+// A corner vector of x: through L1, kept in L2 (evict_last).
 template <typename T, int VEC>
-__global__ void __launch_bounds__(256)
+__device__ __forceinline__ Pack<T, VEC> load_x(const T* p, uint64_t policy) {
+  Pack<T, VEC> out;
+  if constexpr (sizeof(T) * VEC == 16) {
+    uint4 u;
+    asm("ld.global.nc.L2::cache_hint.v4.u32 {%0, %1, %2, %3}, [%4], %5;"
+        : "=r"(u.x), "=r"(u.y), "=r"(u.z), "=r"(u.w)
+        : "l"(p), "l"(policy));
+    out = *reinterpret_cast<Pack<T, VEC>*>(&u);
+  } else if constexpr (sizeof(T) == 4) {
+    uint32_t u;
+    asm("ld.global.nc.L2::cache_hint.b32 %0, [%1], %2;"
+        : "=r"(u)
+        : "l"(p), "l"(policy));
+    out = *reinterpret_cast<Pack<T, VEC>*>(&u);
+  } else {
+    unsigned short u;
+    asm("ld.global.nc.L2::cache_hint.b16 %0, [%1], %2;"
+        : "=h"(u)
+        : "l"(p), "l"(policy));
+    out = *reinterpret_cast<Pack<T, VEC>*>(&u);
+  }
+  return out;
+}
+
+// A vector of cols, written once: streaming, evict-first.
+template <typename T, int VEC>
+__device__ __forceinline__ void store_cols(T* p, const Pack<T, VEC>& v) {
+  if constexpr (sizeof(T) * VEC == 16) {
+    const uint4 u = *reinterpret_cast<const uint4*>(&v);
+    asm volatile("st.global.cs.v4.u32 [%0], {%1, %2, %3, %4};"
+                 :
+                 : "l"(p), "r"(u.x), "r"(u.y), "r"(u.z), "r"(u.w));
+  } else if constexpr (sizeof(T) == 4) {
+    asm volatile("st.global.cs.b32 [%0], %1;"
+                 :
+                 : "l"(p), "r"(*reinterpret_cast<const uint32_t*>(&v)));
+  } else {
+    asm volatile("st.global.cs.b16 [%0], %1;"
+                 :
+                 : "l"(p),
+                   "h"(*reinterpret_cast<const unsigned short*>(&v)));
+  }
+}
+
+// Shared memory of a tile of `tile` pixels with K taps: the staged
+// offsets (2K a pixel) and mask (K a pixel), then each row's corner
+// offsets and weights.
+__host__ __device__ inline size_t tile_smem(int tile, int K) {
+  return (size_t)tile * K * (3 * sizeof(float) + sizeof(int4) +
+                             sizeof(float4));
+}
+
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kThreads, 2)
     dcn_im2col_kernel(const T* __restrict__ x, const float* __restrict__ offset,
                       const float* __restrict__ mask, T* __restrict__ cols,
                       int B, int H, int W, int C, int Ho, int Wo, int ks,
-                      int stride, int pad) {
+                      int stride, int pad, int tile) {
   using P = Pack<T, VEC>;
-  const int cv_per_row = C / VEC;
+  // Rows a thread keeps in flight: four, two for bf16 vectors, whose
+  // sixteen corners of eight channels would not fit in registers.
+  constexpr int kRowsInFlight = sizeof(T) == 2 && VEC == 8 ? 2 : 4;
+  extern __shared__ int4 smem[];
   const int K = ks * ks;
+  int4* s_corner = smem;                                    // tile * K
+  float4* s_weight = reinterpret_cast<float4*>(s_corner + tile * K);
+  float* s_off = reinterpret_cast<float*>(s_weight + tile * K);  // 2K
+  float* s_mask = s_off + tile * 2 * K;                          // K
+
   const int HoWo = Ho * Wo;
-  const int total = B * HoWo * K * cv_per_row;
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < total;
-       i += gridDim.x * blockDim.x) {
-    const int cv = i % cv_per_row;
-    const int row = i / cv_per_row;  // (b * HoWo + p) * K + k
-    const int k = row % K;
-    const int bp = row / K;  // b * HoWo + p
-    const int p = bp % HoWo;
+  const int px0 = blockIdx.x * tile;  // first pixel (b * HoWo + p)
+  const int npx = min(tile, B * HoWo - px0);
+  const int nrows = npx * K;
+
+  // Stage the tile's offsets and mask: contiguous across pixels.
+  for (int e = threadIdx.x; e < nrows * 2; e += kThreads)
+    s_off[e] = offset[(size_t)px0 * 2 * K + e];
+  for (int e = threadIdx.x; e < nrows; e += kThreads)
+    s_mask[e] = mask[(size_t)px0 * K + e];
+  __syncthreads();
+
+  // Each row's geometry, once.
+  for (int row = threadIdx.x; row < nrows; row += kThreads) {
+    const int pix = row / K;
+    const int k = row - pix * K;
+    const int bp = px0 + pix;
     const int b = bp / HoWo;
+    const int p = bp - b * HoWo;
     const int oy = p / Wo;
     const int ox = p - oy * Wo;
     const int ky = k / ks;
     const int kx = k - ky * ks;
-
-    const float sy = static_cast<float>(oy * stride - pad + ky) +
-                     offset[(size_t)bp * 2 * K + 2 * k];
-    const float sx = static_cast<float>(ox * stride - pad + kx) +
-                     offset[(size_t)bp * 2 * K + 2 * k + 1];
-    const float m = mask[(size_t)bp * K + k];
-
+    const float sy =
+        static_cast<float>(oy * stride - pad + ky) + s_off[2 * row];
+    const float sx =
+        static_cast<float>(ox * stride - pad + kx) + s_off[2 * row + 1];
+    const float m = s_mask[row];
     const float fy0 = floorf(sy);
     const float fx0 = floorf(sx);
     const float fy = sy - fy0;
     const float fx = sx - fx0;
     const int y0 = static_cast<int>(fy0);
     const int x0 = static_cast<int>(fx0);
-
-    float acc[VEC];
-#pragma unroll
-    for (int j = 0; j < VEC; ++j) acc[j] = 0.f;
-
-    const T* xb = x + (size_t)b * H * W * C + cv * VEC;
+    int at[4];
+    float wt[4];
 #pragma unroll
     for (int corner = 0; corner < 4; ++corner) {
       const int dy = corner >> 1;
       const int dx = corner & 1;
       const int yy = y0 + dy;
       const int xx = x0 + dx;
-      if (yy < 0 || yy > H - 1 || xx < 0 || xx > W - 1) continue;
-      const float wgt = (dy ? fy : 1.f - fy) * (dx ? fx : 1.f - fx);
-      const P v = *reinterpret_cast<const P*>(xb + ((size_t)yy * W + xx) * C);
-#pragma unroll
-      for (int j = 0; j < VEC; ++j) acc[j] += wgt * to_f32(v.v[j]);
+      const bool in = yy >= 0 && yy <= H - 1 && xx >= 0 && xx <= W - 1;
+      at[corner] = in ? ((b * H + yy) * W + xx) * C : -1;
+      wt[corner] = in ? (dy ? fy : 1.f - fy) * (dx ? fx : 1.f - fx) * m : 0.f;
     }
+    s_corner[row] = make_int4(at[0], at[1], at[2], at[3]);
+    s_weight[row] = make_float4(wt[0], wt[1], wt[2], wt[3]);
+  }
+  __syncthreads();
 
-    P out;
+  // Stream (row, vector) pairs: lane v of `rpp` rows a pass; a row of more
+  // vectors than threads is walked by the whole block.
+  const uint64_t policy = evict_last_policy();
+  const int nvec = C / VEC;
+  const int rpp = nvec <= kThreads ? kThreads / nvec : 1;
+  const int v0 = nvec <= kThreads ? threadIdx.x % nvec : threadIdx.x;
+  const int r0 = nvec <= kThreads ? threadIdx.x / nvec : 0;
+  if (r0 >= rpp) return;
+  T* cols_tile = cols + (size_t)px0 * K * C;
+  for (int r = r0; r < nrows; r += kRowsInFlight * rpp) {
+    for (int v = v0; v < nvec; v += kThreads) {
+      P got[kRowsInFlight][4];
+      float4 wts[kRowsInFlight];
 #pragma unroll
-    for (int j = 0; j < VEC; ++j) out.v[j] = from_f32<T>(acc[j] * m);
-    *reinterpret_cast<P*>(cols + (size_t)row * C + cv * VEC) = out;
+      for (int u = 0; u < kRowsInFlight; ++u) {
+        const int row = r + u * rpp;
+        wts[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (row >= nrows) continue;
+        const int4 at = s_corner[row];
+        wts[u] = s_weight[row];
+        const int a[4] = {at.x, at.y, at.z, at.w};
+#pragma unroll
+        for (int corner = 0; corner < 4; ++corner) {
+          if (a[corner] >= 0) {
+            got[u][corner] = load_x<T, VEC>(x + a[corner] + v * VEC, policy);
+          } else {
+#pragma unroll
+            for (int j = 0; j < VEC; ++j)
+              got[u][corner].v[j] = from_f32<T>(0.f);
+          }
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kRowsInFlight; ++u) {
+        const int row = r + u * rpp;
+        if (row >= nrows) continue;
+        const float w[4] = {wts[u].x, wts[u].y, wts[u].z, wts[u].w};
+        float acc[VEC];
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) acc[j] = 0.f;
+#pragma unroll
+        for (int corner = 0; corner < 4; ++corner) {
+#pragma unroll
+          for (int j = 0; j < VEC; ++j)
+            acc[j] += w[corner] * to_f32(got[u][corner].v[j]);
+        }
+        P out;
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) out.v[j] = from_f32<T>(acc[j]);
+        store_cols<T, VEC>(cols_tile + (size_t)row * C + v * VEC, out);
+      }
+    }
   }
 }
 
@@ -124,23 +267,27 @@ int launch(const T* x, const float* offset, const float* mask, T* cols, int B,
            int H, int W, int C, int Ho, int Wo, int ks, int stride, int pad,
            cudaStream_t stream) {
   constexpr int kVec16 = 16 / sizeof(T);  // channels in 16 bytes
-  const int threads = 256;
   // 16-byte accesses need C to be a multiple of the vector and both
   // tensors to start on a 16-byte boundary (a view may not).
   const bool vec = (C % kVec16) == 0 &&
                    reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(cols) % 16 == 0;
-  const long long work =
-      (long long)B * Ho * Wo * ks * ks * (vec ? C / kVec16 : C);
-  const long long want = (work + threads - 1) / threads;
-  const int blocks = static_cast<int>(want < (1 << 20) ? want : (1 << 20));
-  if (blocks == 0) return static_cast<int>(cudaGetLastError());
+  const long long pixels = (long long)B * Ho * Wo;
+  if (pixels == 0 || C == 0) return static_cast<int>(cudaGetLastError());
+  // The largest tile that still gives the card a few blocks a SM.
+  int tile = 32;
+  while (tile > 8 && (pixels + tile - 1) / tile < 512) tile /= 2;
+  const long long blocks = (pixels + tile - 1) / tile;
+  const size_t smem = tile_smem(tile, ks * ks);
+  if (smem > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
   if (vec) {
-    dcn_im2col_kernel<T, kVec16><<<blocks, threads, 0, stream>>>(
-        x, offset, mask, cols, B, H, W, C, Ho, Wo, ks, stride, pad);
+    dcn_im2col_kernel<T, kVec16><<<static_cast<unsigned>(blocks), kThreads,
+                                   smem, stream>>>(
+        x, offset, mask, cols, B, H, W, C, Ho, Wo, ks, stride, pad, tile);
   } else {
-    dcn_im2col_kernel<T, 1><<<blocks, threads, 0, stream>>>(
-        x, offset, mask, cols, B, H, W, C, Ho, Wo, ks, stride, pad);
+    dcn_im2col_kernel<T, 1><<<static_cast<unsigned>(blocks), kThreads, smem,
+                              stream>>>(
+        x, offset, mask, cols, B, H, W, C, Ho, Wo, ks, stride, pad, tile);
   }
   return static_cast<int>(cudaGetLastError());
 }

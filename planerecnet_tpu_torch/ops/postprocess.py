@@ -38,30 +38,23 @@ def _masked_topk_desc(scores: torch.Tensor, valid: torch.Tensor, k: int):
     return idx[:k], torch.isfinite(top[:k])
 
 
-def postprocess_single(cate_scores_flat: torch.Tensor,
-                       kernels_flat: torch.Tensor,
-                       mask_feat: torch.Tensor,
-                       depth_pred: torch.Tensor,
-                       cfg: PlaneRecNetConfig,
-                       ori_size: Tuple[int, int],
-                       num_levels: int | None = None
-                       ) -> Dict[str, torch.Tensor]:
-    """Post-process one image.
+def select_masks(cate_scores_flat: torch.Tensor, kernels_flat: torch.Tensor,
+                 mask_feat: torch.Tensor, cfg: PlaneRecNetConfig,
+                 num_levels: int | None = None):
+    """The detections of one image before the resize: candidate extraction
+    through the final top-k.
 
     cate_scores_flat (N_cells, num_classes) point-NMS'd scores; kernels_flat
-    (N_cells, num_kernels); mask_feat (Hm, Wm, num_kernels); depth_pred
-    (Hd, Wd, 1). Returns pred_masks (top_k, H, W) bool, pred_scores
-    (top_k,), pred_classes (top_k,) int32, pred_boxes (top_k, 4) xyxy,
-    pred_valid (top_k,) bool, pred_depth (H, W), candidates_clipped ().
+    (N_cells, num_kernels); mask_feat (Hm, Wm, num_kernels). Returns, per
+    top_k slot, scores, labels, the grid cell it came from, its soft mask
+    (top_k, Hm*Wm) and whether it is valid; and whether candidates were
+    clipped.
     """
     sv = cfg.solov2
     cap = sv.max_candidates
     dev = cate_scores_flat.device
     n_cells, n_cls = cate_scores_flat.shape
-    hm, wm, n_k = mask_feat.shape
-
-    depth = resize_bilinear(depth_pred.permute(2, 0, 1)[None].float(),
-                            ori_size)[0, 0]
+    n_k = mask_feat.shape[-1]
 
     # --- candidate extraction ---
     scores_all = cate_scores_flat.reshape(-1)
@@ -98,6 +91,7 @@ def postprocess_single(cate_scores_flat: torch.Tensor,
     order, _ = _masked_topk_desc(scores, valid, cap)
     scores = scores[order]
     labels = labels[order]
+    cells = cells[order]
     seg_sig = seg_sig[order]
     seg_bin = seg_bin[order]
     sum_masks = sum_masks[order]
@@ -118,10 +112,33 @@ def postprocess_single(cate_scores_flat: torch.Tensor,
 
     # Final top-k; k cannot exceed the capacity.
     order, ok = _masked_topk_desc(scores, valid, min(sv.top_k, cap))
-    scores = scores[order]
-    labels = labels[order]
-    seg_sig = seg_sig[order]
-    valid = valid[order] & ok
+    return (scores[order], labels[order], cells[order], seg_sig[order],
+            valid[order] & ok, clipped)
+
+
+def postprocess_single(cate_scores_flat: torch.Tensor,
+                       kernels_flat: torch.Tensor,
+                       mask_feat: torch.Tensor,
+                       depth_pred: torch.Tensor,
+                       cfg: PlaneRecNetConfig,
+                       ori_size: Tuple[int, int],
+                       num_levels: int | None = None
+                       ) -> Dict[str, torch.Tensor]:
+    """Post-process one image.
+
+    cate_scores_flat (N_cells, num_classes) point-NMS'd scores; kernels_flat
+    (N_cells, num_kernels); mask_feat (Hm, Wm, num_kernels); depth_pred
+    (Hd, Wd, 1). Returns pred_masks (top_k, H, W) bool, pred_scores
+    (top_k,), pred_classes (top_k,) int32, pred_boxes (top_k, 4) xyxy,
+    pred_valid (top_k,) bool, pred_depth (H, W), candidates_clipped ().
+    """
+    sv = cfg.solov2
+    dev = cate_scores_flat.device
+    hm, wm, _ = mask_feat.shape
+    depth = resize_bilinear(depth_pred.permute(2, 0, 1)[None].float(),
+                            ori_size)[0, 0]
+    scores, labels, _, seg_sig, valid, clipped = select_masks(
+        cate_scores_flat, kernels_flat, mask_feat, cfg, num_levels)
 
     # Resize the soft masks to the output size and binarise.
     masks = resize_bilinear(seg_sig.reshape(-1, 1, hm, wm), ori_size)[:, 0]

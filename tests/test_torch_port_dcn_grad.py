@@ -93,11 +93,43 @@ def _scatter_inputs(seed, b=2, r=100, c=8, h=7, w=9):
     return idx, cw, dcols, h, w
 
 
-@pytest.mark.parametrize("oracle", ["pallas_interpret", "xla"])
-def test_scatter_plain_matches_jax(oracle):
+def _conv_scatter_inputs(seed, spread, stride, b=2, c=8, h=13, w=11):
+    """The rows a DCN backward hands the scatter: pixel-major, tap-minor,
+    with offsets of +-``spread`` px. Under a pixel the rows of neighbouring
+    pixels cluster on a few dx pixels (the kernel's window path); at 8 px
+    they spread over the map and past its edges."""
+    rng = np.random.RandomState(seed)
+    ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+    off = rng.uniform(-spread, spread, (b, ho, wo, 18)).astype(np.float32)
+    mask = rng.uniform(0.0, 2.0, (b, ho, wo, 9)).astype(np.float32)
+    idx, cw = dcn.scatter_inputs(torch.from_numpy(off),
+                                 torch.from_numpy(mask), h, w, stride=stride)
+    dcols = rng.randn(b, idx.shape[1], c).astype(np.float32)
+    return idx.numpy(), cw.numpy(), dcols, h, w
+
+
+# (oracle, corners): the first two keep their earlier ids.
+SCATTER_CASES = [(o, corners) for corners in ("random", "clustered_s1",
+                                              "clustered_s2", "spread")
+                 for o in ("pallas_interpret", "xla")]
+
+
+@pytest.mark.parametrize(
+    "oracle,corners", SCATTER_CASES,
+    ids=[o if corners == "random" else f"{o}-{corners}"
+         for o, corners in SCATTER_CASES])
+def test_scatter_plain_matches_jax(oracle, corners):
     """Random corners across the whole padded map, margins included, with
-    non-zero weights there (what lands in the margin is dropped)."""
-    idx, cw, dcols, h, w = _scatter_inputs(seed=5)
+    non-zero weights there (what lands in the margin is dropped); and the
+    rows of a DCN backward with corners clustered (offsets under a pixel,
+    stride 1 and 2) and spread (+-8 px)."""
+    if corners == "random":
+        idx, cw, dcols, h, w = _scatter_inputs(seed=5)
+    elif corners == "spread":
+        idx, cw, dcols, h, w = _conv_scatter_inputs(7, 8.0, 1)
+    else:
+        idx, cw, dcols, h, w = _conv_scatter_inputs(6, 0.5,
+                                                    int(corners[-1]))
     args = (jnp.asarray(idx), jnp.asarray(cw), jnp.asarray(dcols), h, w)
     if oracle == "xla":
         want = np.asarray(dcn_input_grad_xla(*args))
