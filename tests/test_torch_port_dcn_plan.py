@@ -7,7 +7,8 @@ and serving (480x640) sizes, to the card's shared memory and to covering
 every row and channel once, mirroring the kernel's block-to-rows map. The
 accounting of ``chip_smoke.py``'s phase 6 (which pixels may differ between
 the CPU's and the card's binary masks) is held on constructed tensors and
-on the tiny preset's post-processing.
+on the tiny preset's post-processing, and its phase 7's log of the DCN
+offsets' spread on the tiny preset.
 """
 
 import itertools
@@ -147,23 +148,21 @@ def test_near_threshold_flips_counts():
 
 
 def test_soft_change_bound_holds():
-    """Every element of kernels and features moved by up to the raw
-    tolerance of its tensor's scale: the soft masks move by no more than
+    """Every element of kernels and features moved by up to its error
+    (per detection for the kernels): the soft masks move by no more than
     the bound."""
     rng = np.random.RandomState(0)
     k = torch.from_numpy(rng.randn(6, 32).astype(np.float32)) * 0.3
     f = torch.from_numpy(rng.randn(50, 32).astype(np.float32))
-    kscale = k.abs().max().expand(6)
-    fscale = f.abs().max()
-    tol = chip_smoke.RAW_TOL
-    bound = chip_smoke.soft_change_bound(k, f, kscale, fscale)
+    kerr = torch.tensor([1e-3, 1e-3, 2e-3, 2e-3, 5e-4, 1e-4])
+    ferr = 3e-3
+    bound = chip_smoke.soft_change_bound(k, f, kerr, ferr)
     base = torch.sigmoid(k.double() @ f.double().T)
     worst = 0.0
     for trial in range(20):
-        dk = torch.from_numpy(rng.uniform(-1, 1, k.shape)) * tol * (
-            kscale[0] + k.abs()).double()
-        df = torch.from_numpy(rng.uniform(-1, 1, f.shape)) * tol * (
-            fscale + f.abs()).double()
+        dk = torch.from_numpy(rng.uniform(-1, 1, k.shape)) * kerr.double()[
+            :, None]
+        df = torch.from_numpy(rng.uniform(-1, 1, f.shape)) * ferr
         moved = torch.sigmoid((k.double() + dk) @ (f.double() + df).T)
         ratio = float(((moved - base).abs() / bound).max())
         assert ratio <= 1.0
@@ -185,13 +184,39 @@ def test_soft_masks_recomputed_from_raw_match_infer():
     x = chip_smoke.frames(1, 64, 96, seed=3)
     out = runner.infer(x)
     raw = runner.forward_raw(fast_base_transform(torch.from_numpy(x)))
-    soft, margin, kept = chip_smoke.soft_masks_and_margin(raw, low, (64, 96))
+    errs = {f"kernel_preds[{i}]": 1e-5
+            for i in range(len(raw["kernel_preds"]))}
+    errs["mask_pred[0]"] = 2e-5
+    soft, margin, kept = chip_smoke.soft_masks_and_margin(raw, low, (64, 96),
+                                                          errs)
     torch.testing.assert_close(kept, out["pred_valid"][0])
     v = kept
     assert int(v.sum()) > 0
     torch.testing.assert_close(soft[v] > low.solov2.mask_thr,
                                out["pred_masks"][0][v])
     assert bool((margin[v] > 0).all()) and bool(torch.isfinite(margin).all())
+
+
+def test_offset_spread_reads_every_dcn_layer():
+    """The offsets' spread that the training main path logs: one entry per
+    DCN input width of the tiny preset, ordered percentiles, zero for
+    offset convs of zero weight, and no hook left behind."""
+    from planerecnet_tpu_torch.models.planerecnet import PlaneRecNet
+    cfg = PlaneRecNet_tiny_config
+    model = PlaneRecNet(cfg).eval()
+    x = torch.from_numpy(np.random.RandomState(0).randn(
+        1, 64, 64, 3).astype(np.float32))
+    widths = {c for _, _, c, _ in dcn_shapes(cfg, 64, 64)}
+    for std in (0.0, 0.1):
+        chip_smoke.perturb_(model, seed=1, offset_std=std)
+        with torch.no_grad():
+            spread = chip_smoke.offset_spread(model, lambda: model(x))
+        assert set(spread) == widths
+        for s in spread.values():
+            assert 0 <= s["p50"] <= s["p95"] <= s["p99"] <= s["max"]
+            assert (s["std"] > 0) == (std > 0)
+            assert (s["max"] == 0) == (std == 0)
+    assert not any(m._forward_hooks for m in model.modules())
 
 
 def test_scatter_inputs_rows_fit_the_plan_geometry():
