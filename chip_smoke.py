@@ -55,8 +55,22 @@ can be compared on one card.
    One untimed step logs the spread of the DCN layers' offsets.
 8. training CPU against GPU: one step of the tiny preset on the same
    weights, batch and VNL indices on both devices, TF32 off.
+9. the CLI path: a synthetic ScanNet tree (24 train, 8 valid, 8 eval
+   images at 480x640, seed 0) written by the port's ``synth_scenes``;
+   ``planerecnet_tpu_torch.train.main`` trains PRN-50 on it (batch 8,
+   max_size 640, f32, ``--reproductablity``) for 12 steps and saves, then
+   resumes from ``latest`` for 4 more; every step must launch 26/13/4/4,
+   every loss be finite, the resume start at 12, and the first 3 batches
+   reach the card with their host checksums. Logged: ms/step through the
+   CLI beside the same batch stepped in memory and phase 7's step, the
+   loader's occupancy, the host's ms a batch to read, augment and
+   collate. ``planerecnet_tpu_torch.eval.main`` then scores the
+   checkpoint on the 8 eval images at batch 8 three times: device metrics
+   (its first calls), host metrics, device metrics (timed): 13 im2col
+   launches a request, identical tables and depth metrics. Last, the
+   checkpoint's DCN offsets by layer width.
 
-9. with ``--profile DIR`` only: host-clocked stages of one request and a
+10. with ``--profile DIR`` only: host-clocked stages of one request and a
    ``torch.profiler`` trace of two requests and of two training steps
    (kernel tables and busy shares printed, traces and tables written to
    DIR).
@@ -1086,6 +1100,249 @@ def phase_train_cpu_vs_gpu():
         f"{p95:.3g}, max {errs[-1]:.3g} of the leaf scale")
 
 
+# The CLI path (phase 9): a synthetic ScanNet tree on disk, PRN-50 trained
+# through ``planerecnet_tpu_torch.train`` for CLI_ITERS steps, resumed for
+# CLI_RESUME more, then evaluated through ``planerecnet_tpu_torch.eval``.
+CLI_SPLITS = (24, 8, 8)           # train, valid, eval images
+CLI_ITERS, CLI_RESUME = 12, 4
+CLI_SUM_BATCHES = 3               # batches whose upload is checked
+# Low enough for seeded weights after 16 steps to give detections.
+CLI_EVAL_THR = "0.001"
+
+
+def wire_checksum(x) -> int:
+    """An order-free checksum of a wire field, the same on the host and on
+    the card: the sum of its values as integers, f32 by their bits."""
+    if isinstance(x, np.ndarray):
+        x = torch.from_numpy(np.ascontiguousarray(x))
+    from planerecnet_tpu_torch.trainer import widen_u16
+    x = widen_u16(x)
+    if x.dtype == torch.float32:
+        x = x.view(torch.int32)
+    return int(x.to(torch.int64).sum())
+
+
+def host_stages(cfg, n_batches=3):
+    """Host ms a batch of BATCH for reading (files, masks), augmenting and
+    collating the CLI's train split, one thread; augment is the
+    difference of a pull with and without ``SSDAugmentation``."""
+    from planerecnet_tpu_torch.data import (SSDAugmentation, build_dataset,
+                                            collate_batch)
+    raw = build_dataset(cfg, "train")
+    aug = build_dataset(cfg, "train", transform=SSDAugmentation(
+        cfg, rng=np.random.RandomState(0)))
+    out = {"read": [], "augment": [], "collate": []}
+    for b in range(n_batches):
+        idx = range(b * BATCH, (b + 1) * BATCH)
+        t0 = time.perf_counter()
+        for i in idx:
+            raw.pull_item(i)
+        t1 = time.perf_counter()
+        samples = [aug.pull_item(i) for i in idx]
+        t2 = time.perf_counter()
+        collate_batch(cfg, samples)
+        t3 = time.perf_counter()
+        out["read"].append((t1 - t0) * 1e3)
+        out["augment"].append(((t2 - t1) - (t1 - t0)) * 1e3)
+        out["collate"].append((t3 - t2) * 1e3)
+    return {k: float(np.median(v)) for k, v in out.items()}
+
+
+def phase_cli(card, train_ms):
+    """The CLI path. Generates the tree, trains PRN-50 through the train
+    CLI (batch 8, max_size 640, f32, --reproductablity), resumes from
+    ``latest``, evaluates the checkpoint through the eval CLI with device
+    and with host metrics. Checks the launches of every step, the losses,
+    the resume's start, the upload of the first batches and that the
+    eval runs agree. Returns the launches of the path by kernel."""
+    import os
+    import shutil
+    import tempfile
+    from planerecnet_tpu_torch import eval as eval_cli
+    from planerecnet_tpu_torch import train as train_cli
+    from planerecnet_tpu_torch import trainer
+    from planerecnet_tpu_torch.config import PlaneRecNet_50_config
+    from planerecnet_tpu_torch.data import datasets
+    from planerecnet_tpu_torch.ops import dcn, dcn_scatter, dice_lava
+    from planerecnet_tpu_torch.runner import PlaneRecNetRunner
+    from planerecnet_tpu_torch.tools import synth_scenes
+    counters = {"dcn_im2col": dcn.deform_im2col,
+                "dcn_scatter": dcn_scatter.dcn_input_grad,
+                "dice_lava_fwd": dice_lava.dice_lava_fwd,
+                "dice_lava_bwd": dice_lava.dice_lava_bwd}
+    per_step = {"dcn_im2col": 2 * DCN_LAYERS_PRN50,
+                "dcn_scatter": DCN_LAYERS_PRN50,
+                "dice_lava_fwd": DICE_LEVELS, "dice_lava_bwd": DICE_LEVELS}
+    work = tempfile.mkdtemp(prefix="prn_cli_")
+    cwd = os.getcwd()
+    collate, train_step = datasets.collate_batch, trainer.train_step
+    host_sums, steps, first_batch = [], [], []
+
+    def collate_probe(*args, **kwargs):
+        batch = collate(*args, **kwargs)
+        if len(host_sums) < CLI_SUM_BATCHES:
+            host_sums.append({k: wire_checksum(v) for k, v in batch.items()})
+        if not first_batch:
+            first_batch.append(batch)
+        return batch
+
+    def step_probe(state, batch):
+        rec = {"t": time.perf_counter()}
+        if len(steps) < CLI_SUM_BATCHES:
+            rec["on_card"] = all(isinstance(v, torch.Tensor) and v.is_cuda
+                                 for v in batch.values())
+            rec["sums"] = {k: wire_checksum(v) for k, v in batch.items()}
+        before = {k: fn.launches for k, fn in counters.items()}
+        losses = train_step(state, batch)
+        rec["launches"] = {k: fn.launches - before[k]
+                           for k, fn in counters.items()}
+        rec["losses"] = losses
+        steps.append(rec)
+        return losses
+
+    try:
+        t0 = time.perf_counter()
+        synth_scenes.generate_dataset(work, *CLI_SPLITS, h=HEIGHT, w=WIDTH,
+                                      seed=0, progress=False)
+        log(f"[cli] synthetic ScanNet tree, {CLI_SPLITS} train/valid/eval "
+            f"images at {HEIGHT}x{WIDTH}, seed 0: "
+            f"{time.perf_counter() - t0:.1f} s")
+        os.chdir(work)
+        datasets.collate_batch, trainer.train_step = collate_probe, step_probe
+        for fn in counters.values():
+            fn.launches = 0
+        common = ["--config", "PlaneRecNet_50_config", "--batch_size",
+                  str(BATCH), "--dtype", "float32", "--reproductablity",
+                  "--no_tensorboard", "--no_autoscale", "--save_folder",
+                  "weights/"]
+        t0 = time.perf_counter()
+        first = train_cli.main(common + [
+            "--cfg_overrides", json.dumps({"max_iter": CLI_ITERS})])
+        t1 = time.perf_counter()
+        resumed = train_cli.main(common + [
+            "--cfg_overrides",
+            json.dumps({"max_iter": CLI_ITERS + CLI_RESUME}),
+            "--resume", "latest"])
+        t2 = time.perf_counter()
+        launches = {k: fn.launches for k, fn in counters.items()}
+        datasets.collate_batch, trainer.train_step = collate, train_step
+        log(f"[cli] train CLI: {CLI_ITERS} steps in {t1 - t0:.1f} s, "
+            f"resumed {json.dumps({k: resumed[k] for k in ('start_iter', 'iteration')})}"
+            f" in {t2 - t1:.1f} s (model build, per-epoch validation and "
+            f"checkpoints included); checkpoint {resumed['checkpoint']}")
+        if resumed["start_iter"] != CLI_ITERS or \
+                resumed["iteration"] != CLI_ITERS + CLI_RESUME:
+            raise AssertionError(f"resume: {resumed}, expected start at "
+                                 f"{CLI_ITERS}")
+        if len(steps) != CLI_ITERS + CLI_RESUME:
+            raise AssertionError(f"{len(steps)} steps through the CLI")
+        for i, rec in enumerate(steps):
+            if rec["launches"] != per_step:
+                raise AssertionError(f"CLI step {i}: launches "
+                                     f"{rec['launches']}, expected {per_step}")
+        totals = torch.stack([v for rec in steps
+                              for v in rec["losses"].values()])
+        if not torch.isfinite(totals).all():
+            raise AssertionError("a loss through the CLI is not finite: "
+                                 + json.dumps([{k: float(v) for k, v in
+                                                rec["losses"].items()}
+                                               for rec in steps]))
+        for i, (want, rec) in enumerate(zip(host_sums, steps)):
+            if not rec["on_card"] or rec["sums"] != want:
+                raise AssertionError(f"batch {i} on the card {rec['sums']} "
+                                     f"(all on the card: {rec['on_card']})"
+                                     f", on the host {want}")
+        log(f"[cli] launches per step as expected {json.dumps(per_step)} at "
+            f"each of {len(steps)} steps; every loss finite; the first "
+            f"{len(host_sums)} batches arrived on the card with the host's "
+            f"checksums of {sorted(host_sums[0])}")
+        # Within an epoch (3 steps of 8 of 24 images), after the first.
+        t = [rec["t"] for rec in steps[:CLI_ITERS]]
+        per = CLI_SPLITS[0] // BATCH
+        gaps = [(t[i + 1] - t[i]) * 1e3 for i in range(per, CLI_ITERS - 1)
+                if (i + 1) % per]
+        cli_ms = float(np.median(gaps))
+        shape = tuple(first_batch[0]["image"].shape)
+        state = trainer.create_train_state(PlaneRecNet_50_config, seed=0,
+                                           device="cuda")
+        trainer.train_step(state, first_batch[0])
+        mem = []
+        for _ in range(4):
+            t0 = time.perf_counter()
+            trainer.train_step(state, first_batch[0])
+            torch.cuda.synchronize()
+            mem.append((time.perf_counter() - t0) * 1e3)
+        del state
+        mem_ms = float(np.median(mem))
+        log(f"[cli] ms/step through the train CLI {cli_ms:.3f} (median of "
+            f"{len(gaps)} steps within epochs 2-{CLI_ITERS // per}: "
+            f"{[round(g, 3) for g in gaps]}), batch {shape} u8; the same "
+            f"batch in memory, pageable upload each step: {mem_ms:.3f} "
+            f"(median of {len(mem)}); phase 7's in-memory step at "
+            f"{BATCH}x{TRAIN_SIZE}x{TRAIN_SIZE}: {train_ms:.3f}; loader "
+            f"mean occupancy {first['mean_occupancy']:.3f} and "
+            f"{resumed['mean_occupancy']:.3f} (of 2); {card}")
+        stages = host_stages(PlaneRecNet_50_config)
+        log(f"[cli] host ms a batch of {BATCH}, one thread, median of 3: "
+            f"{json.dumps(stages)}")
+
+        # The first run also pays the eval shapes' first calls (cuDNN's
+        # choices); the third, device metrics again, is the timed one.
+        results = {}
+        for mode in ("first", "host", "device"):
+            dcn.deform_im2col.launches = 0
+            res = eval_cli.main([
+                "--trained_model", resumed["checkpoint"], "--config",
+                "PlaneRecNet_50_config", "--max_images", str(CLI_SPLITS[2]),
+                "--batch_size", str(BATCH), "--score_threshold",
+                CLI_EVAL_THR, "--update_threshold", CLI_EVAL_THR,
+                "--no_bar", "--seed", "0", "--device", "cuda"]
+                + (["--host_metrics"] if mode == "host" else []))
+            n = dcn.deform_im2col.launches
+            launches["dcn_im2col"] += n
+            requests = -(-CLI_SPLITS[2] // BATCH)
+            if n != DCN_LAYERS_PRN50 * requests:
+                raise AssertionError(f"eval CLI ({mode} run): {n} im2col "
+                                     f"launches for {requests} request(s)")
+            results[mode] = res
+            log(f"[cli] eval CLI, {mode} run: {CLI_SPLITS[2]} images at "
+                f"batch {BATCH}, {res['detections']} detections at "
+                f"score and update thresholds {CLI_EVAL_THR}; "
+                f"{1e3 / res['ms_per_image']:.2f} img/s "
+                f"({res['ms_per_image']:.3f} ms an image, read and "
+                f"transform included); box {json.dumps(res['box'])}, mask "
+                f"{json.dumps(res['mask'])}, depth {json.dumps(res['depth'])}")
+        dev = results["device"]
+        for mode in ("first", "host"):
+            for key in ("box", "mask", "depth", "detections"):
+                if results[mode][key] != dev[key]:
+                    raise AssertionError(
+                        f"eval CLI: {key} differs between the {mode} run and "
+                        f"device metrics: {results[mode][key]} against "
+                        f"{dev[key]}")
+        if dev["detections"] == 0:
+            raise AssertionError("eval CLI: no detections")
+
+        runner = PlaneRecNetRunner(PlaneRecNet_50_config, device="cuda")
+        runner.load_weights(resumed["checkpoint"])
+        batch = first_batch[0]["image"]
+        spread = offset_spread(runner.model, lambda: runner.infer(batch))
+        log(f"[cli] DCN offsets in px of the checkpoint after "
+            f"{CLI_ITERS + CLI_RESUME} steps (seeded weights, not a trained "
+            f"model), by input width, on the first training batch: "
+            f"{json.dumps(spread)}")
+    finally:
+        datasets.collate_batch, trainer.train_step = collate, train_step
+        os.chdir(cwd)
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"[cli] launches over the CLI path (both train runs with their "
+        f"validation, the three eval runs) {json.dumps(launches)}")
+    for k, n in launches.items():
+        if n == 0:
+            raise AssertionError(f"{k} never launched on the CLI path")
+    return launches
+
+
 def phase_profile(runner, out_dir):
     """Where one request's time goes: host-clocked stages, then a
     ``torch.profiler`` trace of two requests (device time by kernel, the
@@ -1237,8 +1494,9 @@ def main():
     # The preset's schedule without its 2000-update warm-up, so that 20
     # steps on one batch show the loss falling.
     train_cfg = PlaneRecNet_50_config.copy(dict(lr_warmup_until=0))
-    state, batch, launches, _, _ = phase_train(train_cfg, card)
+    state, batch, launches, train_ms, _ = phase_train(train_cfg, card)
     phase_train_cpu_vs_gpu()
+    cli_launches = phase_cli(card, train_ms)
     if "--profile" in sys.argv:
         out_dir = sys.argv[sys.argv.index("--profile") + 1]
         phase_profile_train(state, batch, out_dir)
@@ -1263,6 +1521,8 @@ def main():
                      "planerecnet_tpu/ops/pallas/dice_lava.py:203 "
                      "(_fused_bwd, kernel _bwd_kernel :80)"),
         "launches": launches[f"dice_lava_{d}"],
+        "launches_by_path": {"train": launches[f"dice_lava_{d}"],
+                             "cli": cli_launches[f"dice_lava_{d}"]},
         "max_abs_err": dice[d]["max_abs_err"],
         "ms": DICE_LEVELS * dice[d]["ms"],
         "plain_ms": DICE_LEVELS * dice[d]["plain_ms"],
@@ -1285,7 +1545,8 @@ def main():
                     "sampling at :212-242, modulation at :311-316)",
         "launches": launches["dcn_im2col"],
         "launches_by_path": {"infer": infer_launches,
-                             "train": launches["dcn_im2col"]},
+                             "train": launches["dcn_im2col"],
+                             "cli": cli_launches["dcn_im2col"]},
         "max_abs_err": max(worst, cols_err_train),
         "ms": total(records, "ms"),
         "plain_ms": total(records, "plain_ms"),
@@ -1298,7 +1559,8 @@ def main():
         "per": f"times: one request, the {DCN_LAYERS_PRN50} PRN-50 DCN "
                f"layers at batch {BATCH}, {HEIGHT}x{WIDTH}, f32; train_step_*: "
                f"the {2 * DCN_LAYERS_PRN50} launches of {train_per}; launches: "
-               f"{TIMED_STEPS} training steps (and {REQUESTS} requests)",
+               f"{TIMED_STEPS} training steps (and {REQUESTS} requests; cli: "
+               f"the train and eval CLIs' runs of phase 9)",
         "card": card,
     }, {
         "name": "dcn_scatter",
@@ -1307,6 +1569,8 @@ def main():
         "replaces": "planerecnet_tpu/ops/pallas/dcn_scatter.py:117 "
                     "(dcn_input_grad_pallas, kernel _make_kernel :43)",
         "launches": launches["dcn_scatter"],
+        "launches_by_path": {"train": launches["dcn_scatter"],
+                             "cli": cli_launches["dcn_scatter"]},
         "max_abs_err": scatter_err,
         "ms": total(scatter, "ms"),
         "plain_ms": total(scatter, "plain_ms"),

@@ -1,10 +1,11 @@
 """Immutable configuration of the inference and training paths.
 
 Frozen dataclasses with the JAX package's field names and preset values
-(``planerecnet_tpu/config.py``: ``PlaneRecNet_base/101/50/tiny_config``)
-for the fields the port reads, so a preset means the same model and the
-same training recipe in both packages. This is a copy, not an import: the
-port depends on nothing of the JAX package.
+(``planerecnet_tpu/config.py``: ``PlaneRecNet_base/101/50/tiny_config``
+and the dataset presets) for the fields the port reads, so a preset means
+the same model, the same data and the same training recipe in both
+packages. This is a copy, not an import: the port depends on nothing of
+the JAX package.
 
 ``compute_dtype="auto"`` resolves to float32 here; ``"bfloat16"`` is taken
 when it is set explicitly.
@@ -12,12 +13,16 @@ when it is set explicitly.
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, replace
 from typing import Optional, Tuple
 
 # ImageNet channel statistics in BGR order.
 MEANS = (103.94, 116.78, 123.68)
 STD = (57.38, 57.12, 58.40)
+
+PLANE_CLASSES = ("plane",)
+PLANE_LABEL_MAP = {1: 1}
 
 
 def _tup(x):
@@ -36,24 +41,88 @@ class _FrozenBase:
 
 @dataclass(frozen=True)
 class DatasetConfig(_FrozenBase):
-    """What the losses read of a dataset preset. The names are the JAX
-    package's (and the reference's): the loss's "ScanNet" branch tests a
-    name no preset has, so it never fires, in either package."""
+    """A dataset preset: where its splits are, what its annotations carry
+    and how its depth PNGs scale to metres. The loss's "ScanNet" branch
+    tests a name no preset has, so it never fires, in either package."""
 
     name: str = "PlaneAnnoDataset"
+    train_images: str = ""
+    train_info: str = ""
+    valid_images: str = ""
+    valid_info: str = ""
+    eval_images: str = ""
+    eval_info: str = ""
+    has_gt: bool = True
+    has_pos: bool = True
+    class_names: Tuple[str, ...] = PLANE_CLASSES
     # Depth png value -> metres.
     depth_resolution: Optional[float] = None
     min_depth: Optional[float] = None
+    max_depth: Optional[float] = None
+    # Scale applied to the camera intrinsics when back-projecting depth.
+    scale_factor: Optional[float] = None
+    # category_id -> label; None = identity over class_names.
+    label_map: Optional[Tuple[Tuple[int, int], ...]] = tuple(
+        PLANE_LABEL_MAP.items())
 
 
 dataset_base = DatasetConfig()
 scannet_dataset = dataset_base.copy(dict(
-    name="ScanNetDataset", depth_resolution=1 / 1000, min_depth=1 / 1000))
+    name="ScanNetDataset",
+    train_images="./scannet/scans/",
+    train_info="./scannet/scannet_train.json",
+    valid_images="./scannet/scans/",
+    valid_info="./scannet/scannet_val.json",
+    eval_images="./scannet/scans/",
+    eval_info="./scannet/scannet_eval.json",
+    depth_resolution=1 / 1000,
+    min_depth=1 / 1000,
+    max_depth=40.0,
+    scale_factor=1.0,
+))
 nyu_eval = dataset_base.copy(dict(
-    name="NYUDataset", min_depth=1 / 1000,
-    depth_resolution=1 / 65535.0 * 9.99547))
+    name="NYUDataset",
+    eval_images="./NYU/nyu_images/",
+    eval_info="./NYU/nyu_eval.json",
+    scale_factor=1.0,
+    min_depth=1 / 1000,
+    max_depth=40.0,
+    has_pos=False,
+    depth_resolution=1 / 65535.0 * 9.99547,
+))
 S2D3DS_dataset = dataset_base.copy(dict(
-    name="S2D3DSDataset", depth_resolution=1 / 512, min_depth=1 / 512))
+    name="S2D3DSDataset",
+    train_images="./S2D3DS/images/",
+    train_info="./S2D3DS/s2d3ds_train.json",
+    valid_images="./S2D3DS/images_val/",
+    valid_info="./S2D3DS/s2d3ds_val.json",
+    depth_resolution=1 / 512,
+    min_depth=1 / 512,
+    max_depth=40.0,
+    scale_factor=0.5,
+))
+
+
+@dataclass(frozen=True)
+class AugmentConfig(_FrozenBase):
+    """Train-time augmentation switches (``data/augmentations.py``)."""
+
+    photometric_distort: bool = True
+    random_mirror: bool = True
+    random_flip: bool = True
+    random_rot90: bool = False
+    motion_blur: bool = False
+    gaussian_noise: bool = False
+
+
+@dataclass(frozen=True)
+class TransformConfig(_FrozenBase):
+    """Input normalisation recipe of the host-side transforms."""
+
+    channel_order: str = "RGB"
+    normalize: bool = True
+    subtract_means: bool = False
+    to_float: bool = False
 
 
 @dataclass(frozen=True)
@@ -65,15 +134,21 @@ class BackboneConfig(_FrozenBase):
     dcn_layers: Tuple[int, ...] = (0, 0, 0, 0)
     dcn_interval: int = 1
     atrous_layers: Tuple[int, ...] = ()
+    # The ImageNet weights' file name; the train CLI looks for it in
+    # ``--backbone_folder``.
+    path: str = "path/to/pretrained/weights"
+    transform: TransformConfig = TransformConfig()
     selected_layers: Tuple[int, ...] = ()
 
 
 resnet101_backbone = BackboneConfig(layers=(3, 4, 23, 3),
+                                    path="resnet101_reducedfc.pth",
                                     selected_layers=tuple(range(3, 7)))
 resnet101_dcn_inter3_backbone = resnet101_backbone.copy(dict(
     dcn_layers=(0, 4, 23, 3), dcn_interval=3))
 resnet50_dcnv2_backbone = resnet101_backbone.copy(dict(
-    layers=(3, 4, 6, 3), dcn_layers=(0, 4, 6, 3)))
+    path="resnet50-19c8e357.pth", layers=(3, 4, 6, 3),
+    dcn_layers=(0, 4, 6, 3)))
 
 
 @dataclass(frozen=True)
@@ -146,6 +221,7 @@ class PlaneRecNetConfig(_FrozenBase):
     name: str = "PlaneRecNet_base"
     dataset: DatasetConfig = scannet_dataset
     num_classes: int = 2   # background + "plane"
+    augment: AugmentConfig = AugmentConfig()
 
     # Training schedule: linear warm-up from ``lr_warmup_init`` to ``lr``
     # over ``lr_warmup_until`` updates, then ``lr * gamma**k`` after the
@@ -158,6 +234,9 @@ class PlaneRecNetConfig(_FrozenBase):
     gamma: float = 0.1
     # Every BatchNorm uses its running statistics in training too.
     freeze_bn: bool = False
+    # (iteration, {field: value}) pairs the train CLI applies from that
+    # iteration on.
+    delayed_settings: Tuple = ()
 
     # Loss weights and switches.
     dice_weight: float = 3.0
@@ -177,6 +256,20 @@ class PlaneRecNetConfig(_FrozenBase):
     max_positives: int = 128
     vnl_samples: int = 512
     vnl_max_planes: int = 16
+
+    # Boxes narrower or lower than this share of the input are dropped.
+    discard_box_width: float = 4 / 640
+    discard_box_height: float = 4 / 640
+    # Square input side of the host-side transforms.
+    max_size: int = 640
+    # The training wire: True ships the augmented image as u8 BGR and
+    # normalises it on the device (photometric values clipped and rounded
+    # to the u8 range); False ships the normalised f32 image.
+    device_normalize: bool = True
+    # True ships only the valid instance slots' bit-packed masks
+    # (``masks_sparse``, ``mask_slots``); False all slots
+    # (``masks_packed``).
+    wire_sparse_masks: bool = True
 
     backbone: BackboneConfig = resnet101_backbone.copy(
         dict(selected_layers=tuple(range(2, 4))))
@@ -232,9 +325,45 @@ _CONFIGS = {
 }
 
 
+_DATASETS = {
+    "dataset_base": dataset_base,
+    "scannet_dataset": scannet_dataset,
+    "nyu_eval": nyu_eval,
+    "S2D3DS_dataset": S2D3DS_dataset,
+}
+
+
 def get_cfg(config_name: str) -> PlaneRecNetConfig:
     """Look a preset up by name (``"PlaneRecNet_50_config"``)."""
     if config_name not in _CONFIGS:
         raise KeyError(
             f"Unknown config '{config_name}'. Available: {sorted(_CONFIGS)}")
     return _CONFIGS[config_name]
+
+
+set_cfg = get_cfg
+
+
+def set_dataset(cfg: PlaneRecNetConfig, dataset_name: str
+                ) -> PlaneRecNetConfig:
+    """``cfg`` with the dataset preset ``dataset_name``."""
+    if dataset_name not in _DATASETS:
+        raise KeyError(
+            f"Unknown dataset '{dataset_name}'. Available: {sorted(_DATASETS)}")
+    return cfg.copy(dict(dataset=_DATASETS[dataset_name]))
+
+
+def apply_overrides(cfg, overrides: dict):
+    """Apply a plain, possibly nested dict of overrides to a frozen config
+    tree: ``{"max_iter": 10, "solov2": {"top_k": 20}}`` (the CLIs'
+    ``--cfg_overrides``). Unknown keys raise; JSON lists become tuples."""
+    upd = {}
+    for key, val in overrides.items():
+        if not hasattr(cfg, key):
+            raise KeyError(f"{type(cfg).__name__} has no field '{key}'")
+        cur = getattr(cfg, key)
+        if isinstance(val, dict) and dataclasses.is_dataclass(cur):
+            upd[key] = apply_overrides(cur, val)
+        else:
+            upd[key] = val
+    return cfg.copy(upd)

@@ -51,6 +51,17 @@ class PlaneRecNetRunner:
                 from_jax_variables(flatten_variables(variables), model))
         self.model = model.to(self.device).eval()
 
+    @classmethod
+    def around(cls, cfg: PlaneRecNetConfig, model: PlaneRecNet
+               ) -> "PlaneRecNetRunner":
+        """A runner over an existing model, shared, not copied (the train
+        CLI's validation); the caller puts the model in eval mode."""
+        runner = cls.__new__(cls)
+        runner.cfg = cfg
+        runner.device = next(model.parameters()).device
+        runner.model = model
+        return runner
+
     def load_weights(self, path: str):
         """Load a JAX-package ``.npz`` (weights or a full train state)."""
         self.model.load_state_dict(from_jax_variables(load_npz(path),
@@ -79,6 +90,34 @@ class PlaneRecNetRunner:
         x = self._batch(images)
         return postprocess_batch(self.model(x), self.cfg,
                                  ori_size or x.shape[1:3])
+
+    @torch.no_grad()
+    def infer_normalized_with_gt_iou(
+            self, images, gt_masks, ori_size: Optional[Tuple[int, int]] = None
+    ) -> Dict[str, torch.Tensor]:
+        """Forward + post-processing on normalised (B, H, W, 3) images,
+        and the IoU of every predicted mask with every padded GT mask
+        (B, N, H, W) on the device: returns the outputs without
+        ``pred_masks`` and with ``gt_mask_iou`` (B, top_k, N), so that
+        only that matrix comes back to the host. Exact: the masks are
+        binary, so the f32 products sum integers below 2^24, and the
+        division is the host formula's (``evaluation.mask_iou``)."""
+        x = self._batch(images)
+        out = postprocess_batch(self.model(x), self.cfg,
+                                ori_size or x.shape[1:3])
+        b = x.shape[0]
+        gm = torch.as_tensor(np.asarray(gt_masks, np.float32)
+                             if not isinstance(gt_masks, torch.Tensor)
+                             else gt_masks).to(self.device, torch.float32)
+        gm = gm.reshape(b, gm.shape[1], -1)
+        pm = out.pop("pred_masks")
+        pm = pm.to(torch.float32).reshape(b, pm.shape[1], -1)
+        inter = torch.bmm(pm, gm.transpose(1, 2))
+        union = pm.sum(-1)[..., None] + gm.sum(-1)[:, None, :] - inter
+        out["gt_mask_iou"] = torch.where(
+            union > 0, inter / union.clamp_min(1e-12),
+            torch.zeros((), device=self.device))
+        return out
 
     @torch.no_grad()
     def forward_raw(self, images_normalized) -> Dict:

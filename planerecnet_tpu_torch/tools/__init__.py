@@ -1,0 +1,1 @@
+"""Tools of the port (counterparts of the repository's ``tools/``)."""

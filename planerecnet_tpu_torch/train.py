@@ -1,0 +1,388 @@
+"""The port's training CLI: ``python -m planerecnet_tpu_torch.train``.
+
+Counterpart of the repository's ``train.py`` on one card: the dataset on
+disk through ``SSDAugmentation``, ``BatchIterator`` and a
+``PrefetchIterator`` that uploads each batch from pinned memory on a
+stream of its own, then ``trainer.train_step`` per batch. Checkpoints keep
+the ``<name>_<epoch>_<iter>`` codec, ctrl-C writes ``*_interrupt``, resume
+parses the start iteration from the file name, and a batch size other
+than 8 rescales lr, max_iter and lr_steps. Runs on ``cuda`` unless
+``--device cpu`` is passed. Data parallelism (``--n_devices > 1``,
+``--multihost``) is not ported yet.
+"""
+
+from __future__ import annotations
+
+import argparse
+import datetime
+import json
+import math
+import os
+import random
+import signal
+import time
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from planerecnet_tpu_torch import trainer
+from planerecnet_tpu_torch.config import (apply_overrides, set_cfg,
+                                          set_dataset)
+from planerecnet_tpu_torch.data import (BaseTransform, BatchIterator,
+                                        PrefetchIterator, SSDAugmentation,
+                                        build_dataset)
+from planerecnet_tpu_torch.runner import PlaneRecNetRunner, resolve_device
+from planerecnet_tpu_torch.utils import MovingAverage, SavePath
+from planerecnet_tpu_torch.utils.checkpoint import (load_train_state,
+                                                    save_train_state)
+
+LOSS_TYPES = ["ins", "lav", "cat", "dpt", "pln"]
+# Losses stay on the device and are read back together every LOG_EVERY
+# steps: a read per step would wait for the device each step.
+LOG_EVERY = 50
+# Exit code asking a supervisor to relaunch with --resume latest: the
+# host-RSS guard saved the state and exited because host memory crossed
+# --max_host_rss_gb.
+RECYCLE_EXIT_CODE = 75
+NOT_PORTED = ("data-parallel training is not ported yet (ROADMAP Queue 1 "
+              "item 8, DDP); run on one card")
+
+
+def host_rss_gb() -> float:
+    """Current resident-set size of this process in GiB (Linux)."""
+    try:
+        with open("/proc/self/statm") as f:
+            pages = int(f.read().split()[1])
+        return pages * os.sysconf("SC_PAGE_SIZE") / 2**30
+    except (OSError, ValueError, IndexError):
+        return 0.0
+
+
+def compute_validation_metrics(cfg, state, eval_nums, no_bar=True):
+    """mAP and depth metrics of the current weights on the valid split,
+    through the eval CLI's ``evaluate``; None where the split is
+    missing."""
+    from planerecnet_tpu_torch.eval import evaluate
+
+    try:
+        dataset = build_dataset(cfg, "valid", transform=BaseTransform(cfg))
+    except (FileNotFoundError, AssertionError) as e:
+        print(f"Validation skipped: {e}")
+        return None
+    state.model.eval()
+    try:
+        return evaluate(PlaneRecNetRunner.around(cfg, state.model), dataset,
+                        during_training=True, eval_nums=eval_nums,
+                        no_bar=no_bar)
+    finally:
+        state.model.train()
+
+
+def parse_args(argv=None):
+    parser = argparse.ArgumentParser(
+        description="PlaneRecNet Training Script")
+    parser.add_argument("--dataset", default=None, type=str)
+    parser.add_argument("--config", default="PlaneRecNet_50_config")
+    parser.add_argument("--save_folder", default="./weights/")
+    parser.add_argument("--log_folder", default="./logs/")
+    parser.add_argument("--backbone_folder", default="./weights/")
+    parser.add_argument("--resume", default=None, type=str,
+                        help='"interrupt" | "latest" | checkpoint path')
+    parser.add_argument("--start_iter", default=-1, type=int)
+    parser.add_argument("--validation_size", default=2000, type=int)
+    parser.add_argument("--validation_epoch", default=1, type=int)
+    parser.add_argument("--no_tensorboard", action="store_true")
+    parser.add_argument("--no_autoscale", dest="autoscale",
+                        action="store_false")
+    parser.add_argument("--reproductablity", action="store_true",
+                        help="Seed 42 for the weights, the data order and "
+                             "augmentation, and numpy's, python's and "
+                             "torch's global generators.")
+    parser.add_argument("--batch_size", default=8, type=int)
+    parser.add_argument("--lr", "--learning_rate", default=None, type=float)
+    parser.add_argument("--momentum", default=None, type=float,
+                        help="No-op, parsed for the JAX CLI's surface: Adam "
+                             "does not read it.")
+    parser.add_argument("--decay", "--weight_decay", default=None, type=float,
+                        help="No-op, parsed for the JAX CLI's surface: Adam "
+                             "runs without weight decay.")
+    parser.add_argument("--gamma", default=None, type=float)
+    parser.add_argument("--num_workers", default=2, type=int,
+                        help="Batches the loader keeps ready.")
+    parser.add_argument("--save_interval", default=12500, type=int)
+    parser.add_argument("--keep_latest", action="store_true")
+    parser.add_argument("--keep_latest_interval", default=10000, type=int)
+    parser.add_argument("--no_interrupt", dest="interrupt",
+                        action="store_false")
+    parser.add_argument("--per_module_lr", action="store_true",
+                        help="5x learning rate for the backbone, 2x for the "
+                             "depth decoder.")
+    parser.add_argument("--n_devices", default=None, type=int,
+                        help="Cards; only 1 is ported.")
+    parser.add_argument("--dtype", default=None,
+                        choices=[None, "float32", "bfloat16"],
+                        help="Training compute dtype (default: the config's, "
+                             "'auto' = float32).")
+    parser.add_argument("--multihost", action="store_true",
+                        help="Not ported (data parallelism across hosts).")
+    parser.add_argument("--max_host_rss_gb", default=0.0, type=float,
+                        help="When >0 and the process RSS crosses this many "
+                             "GiB, save the state and exit with code 75 so "
+                             "that a supervisor relaunches with --resume "
+                             "latest (0 disables).")
+    parser.add_argument("--cfg_overrides", default=None, type=str,
+                        help="JSON dict of (possibly nested) config "
+                             "overrides applied after --config/--dataset, "
+                             'e.g. \'{"max_iter": 100, "solov2": '
+                             '{"top_k": 20}}\'.')
+    parser.add_argument("--device", default="cuda",
+                        help="Where the step runs: cuda (default; raises "
+                             "where there is no card) or cpu.")
+    parser.set_defaults(autoscale=True, interrupt=True)
+    return parser.parse_args(argv)
+
+
+def main(argv=None) -> Dict:
+    """Run the CLI. Returns ``start_iter`` and the final ``iteration``,
+    the loader's mean occupancy, the last checkpoint written
+    (``checkpoint``) and the losses of the last drained step."""
+    args = parse_args(argv)
+    if args.multihost or (args.n_devices or 1) > 1:
+        raise NotImplementedError(NOT_PORTED)
+    device = resolve_device(args.device)
+
+    cfg = set_cfg(args.config)
+    if args.dataset is not None:
+        cfg = set_dataset(cfg, args.dataset)
+    if args.cfg_overrides:
+        cfg = apply_overrides(cfg, json.loads(args.cfg_overrides))
+    if args.dtype:
+        cfg = cfg.copy(dict(compute_dtype=args.dtype))
+
+    # Batch-size autoscaling, as the JAX CLI does.
+    if args.autoscale and args.batch_size != 8:
+        factor = args.batch_size / 8
+        print("Scaling parameters by %.2f to account for a batch size of %d."
+              % (factor, args.batch_size))
+        cfg = cfg.copy(dict(
+            lr=cfg.lr * factor,
+            max_iter=int(cfg.max_iter // factor),
+            lr_steps=tuple(int(x // factor) for x in cfg.lr_steps),
+        ))
+    if args.lr is not None:
+        cfg = cfg.copy(dict(lr=args.lr))
+    if args.gamma is not None:
+        cfg = cfg.copy(dict(gamma=args.gamma))
+    if args.batch_size < 6:
+        print("Per-device batch size is less than the recommended limit for "
+              "batch norm. Disabling batch norm.")
+        cfg = cfg.copy(dict(freeze_bn=True))
+
+    os.makedirs(args.save_folder, exist_ok=True)
+    seed = 42 if args.reproductablity else int(time.time()) % (2 ** 31)
+    if args.reproductablity:
+        np.random.seed(seed)
+        random.seed(seed)
+        torch.manual_seed(seed)
+
+    dataset = build_dataset(cfg, "train", transform=SSDAugmentation(
+        cfg, rng=np.random.RandomState(seed)))
+    loader = PrefetchIterator(
+        BatchIterator(cfg, dataset, args.batch_size, seed=seed),
+        buffer_size=max(args.num_workers, 1), to_device=True, device=device)
+    state = trainer.create_train_state(cfg, seed=seed, device=device,
+                                       per_module_lr=args.per_module_lr)
+
+    start_iter = max(args.start_iter, 0)
+    if args.resume is not None:
+        path = args.resume
+        if path == "interrupt":
+            path = SavePath.get_interrupt(args.save_folder)
+        elif path == "latest":
+            path = SavePath.get_latest(args.save_folder, cfg.name)
+        print(f"Resuming training from {path}...")
+        load_train_state(path, state)
+        if args.start_iter == -1:
+            start_iter = SavePath.from_str(path).iteration
+    else:
+        backbone_path = os.path.join(args.backbone_folder, cfg.backbone.path)
+        if os.path.exists(backbone_path):
+            raise NotImplementedError(
+                f"{backbone_path}: loading ImageNet weights from a .pth is "
+                f"not ported yet (ROADMAP Queue 1, utils/torch_convert.py); "
+                f"point --backbone_folder elsewhere to train from random "
+                f"weights")
+        print("Initializing weights...")
+
+    writer = None
+    if not args.no_tensorboard:
+        try:
+            from torch.utils.tensorboard import SummaryWriter
+            begin = datetime.datetime.now().strftime("%d%m%Y%H%M%S")
+            logpath = os.path.join(args.log_folder, begin + "_" + cfg.name)
+            os.makedirs(logpath, exist_ok=True)
+            writer = SummaryWriter(logpath)
+        except ImportError:
+            print("TensorBoard unavailable; console logging only.")
+
+    iteration = start_iter
+    epoch_size = max(len(dataset) // args.batch_size, 1)
+    num_epochs = math.ceil(cfg.max_iter / epoch_size)
+    loss_avgs = {k: MovingAverage(100) for k in LOSS_TYPES + ["total"]}
+    time_avg = MovingAverage()
+    pending_losses = []
+    block_start = time.time()
+    last_losses: Optional[Dict[str, float]] = None
+
+    def drain_losses():
+        """Read the buffered device losses back in one copy; returns the
+        last step's."""
+        nonlocal block_start
+        if not pending_losses:
+            return None
+        keys = list(pending_losses[0])
+        values = torch.stack([d[k].float() for d in pending_losses
+                              for k in keys]).cpu().reshape(
+                                  len(pending_losses), len(keys)).tolist()
+        now = time.time()
+        per_step = (now - block_start) / len(pending_losses)
+        block_start = now
+        pending_losses.clear()
+        for row in values:
+            time_avg.add(per_step)
+            for k, v in zip(keys, row):
+                if k in loss_avgs:
+                    loss_avgs[k].add(v)
+        return dict(zip(keys, values[-1]))
+
+    def save_path(epoch, it):
+        return SavePath(cfg.name, epoch, it).get_path(root=args.save_folder)
+
+    latest_saved = None
+    delayed = [(it, ov) for it, ov in cfg.delayed_settings]
+
+    # SIGINT sets a flag checked each iteration, and the KeyboardInterrupt
+    # handler below writes the interrupt checkpoint.
+    stop_requested = {"flag": False}
+
+    def _on_sigint(signum, frame):
+        stop_requested["flag"] = True
+    prev_handler = signal.signal(signal.SIGINT, _on_sigint)
+
+    print("Begin training!\n")
+    epoch = 0  # a pre-loop ctrl-C must still reach the interrupt handler
+    try:
+        for epoch in range(num_epochs):
+            if (epoch + 1) * epoch_size < iteration:
+                continue
+            for batch in loader:
+                if stop_requested["flag"]:
+                    raise KeyboardInterrupt
+                if iteration == (epoch + 1) * epoch_size:
+                    break
+                if iteration == cfg.max_iter:
+                    break
+
+                # Delayed config settings from their iteration on.
+                pending = [c for c in delayed if iteration >= c[0]]
+                if pending:
+                    drain_losses()
+                    for _, overrides in pending:
+                        cfg = cfg.copy(dict(overrides))
+                    delayed = [c for c in delayed if iteration < c[0]]
+                    state.cfg = cfg
+                    for avg in loss_avgs.values():
+                        avg.reset()
+
+                pending_losses.append(trainer.train_step(state, batch))
+                iteration += 1
+
+                drained = None
+                if iteration % LOG_EVERY == 0 or \
+                        iteration == cfg.max_iter or \
+                        iteration % args.save_interval == 0:
+                    drained = last_losses = drain_losses()
+
+                if writer is not None and drained is not None:
+                    for k, v in drained.items():
+                        writer.add_scalar(f"loss/{k}", v, iteration)
+
+                if iteration % 100 == 0:
+                    eta = (cfg.max_iter - iteration) * time_avg.get_avg()
+                    eta_str = str(int(eta // 3600)) + "h" + str(
+                        int(eta % 3600 // 60)) + "m"
+                    parts = " | ".join(
+                        f"{k}: {loss_avgs[k].get_avg():.3f}"
+                        for k in LOSS_TYPES if len(loss_avgs[k]))
+                    print(f"[{epoch:3d}] {iteration:7d} || {parts} || "
+                          f"T: {loss_avgs['total'].get_avg():.3f} || "
+                          f"ETA: {eta_str} || "
+                          f"{time_avg.get_avg() * 1000:.0f} ms/it "
+                          f"q: {loader.mean_occupancy():.2f}", flush=True)
+
+                if iteration % args.save_interval == 0 and iteration > 0:
+                    if args.keep_latest and latest_saved is not None:
+                        if args.keep_latest_interval <= 0 or \
+                                iteration % args.keep_latest_interval \
+                                != args.save_interval:
+                            try:
+                                os.remove(latest_saved)
+                            except OSError:
+                                pass
+                    print(f"Saving state, iter: {iteration}")
+                    latest_saved = save_train_state(
+                        save_path(epoch, iteration), state)
+
+                # Host-RSS guard (see RECYCLE_EXIT_CODE).
+                if args.max_host_rss_gb > 0:
+                    rss = host_rss_gb()
+                    if rss > args.max_host_rss_gb:
+                        drain_losses()
+                        signal.signal(signal.SIGINT, prev_handler)
+                        print(f"Host RSS {rss:.1f} GiB > cap "
+                              f"{args.max_host_rss_gb:.1f} GiB: saving "
+                              f"state, iter: {iteration}; exiting "
+                              f"{RECYCLE_EXIT_CODE} for recycle", flush=True)
+                        save_train_state(save_path(epoch, iteration), state)
+                        raise SystemExit(RECYCLE_EXIT_CODE)
+
+            last_losses = drain_losses() or last_losses
+            trunc = loader.iterable.truncation_stats
+            if any(trunc.values()):
+                parts = ", ".join(f"{k}: {v}" for k, v in trunc.items() if v)
+                print(f"WARNING: GT truncated this epoch ({parts}) — "
+                      f"raise cfg.max_instances / cfg.vnl_max_planes if "
+                      f"this is significant for your dataset.", flush=True)
+                if writer is not None:
+                    for k, v in trunc.items():
+                        writer.add_scalar(f"gt_truncation/{k}", v, iteration)
+                trunc.clear()
+            if iteration == cfg.max_iter:
+                break
+
+            if args.validation_epoch > 0 and \
+                    (epoch + 1) % args.validation_epoch == 0:
+                compute_validation_metrics(cfg, state, args.validation_size)
+    except KeyboardInterrupt:
+        signal.signal(signal.SIGINT, prev_handler)
+        result = {"start_iter": start_iter, "iteration": iteration,
+                  "mean_occupancy": loader.mean_occupancy(),
+                  "checkpoint": None, "losses": last_losses}
+        if args.interrupt:
+            print("Stopping early. Saving network...")
+            SavePath.remove_interrupt(args.save_folder)
+            result["checkpoint"] = save_train_state(
+                save_path(epoch, repr(iteration) + "_interrupt"), state)
+        return result
+
+    signal.signal(signal.SIGINT, prev_handler)
+    final = save_train_state(save_path(epoch, iteration), state)
+    print("Training complete.")
+    return {"start_iter": start_iter, "iteration": iteration,
+            "mean_occupancy": loader.mean_occupancy(), "checkpoint": final,
+            "losses": last_losses}
+
+
+if __name__ == "__main__":
+    main()

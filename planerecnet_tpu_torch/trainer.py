@@ -123,6 +123,14 @@ def densify_sparse_masks(cfg: PlaneRecNetConfig, batch: Dict) -> Dict:
     return batch
 
 
+def widen_u16(x: torch.Tensor) -> torch.Tensor:
+    """A uint16 tensor as int32 of the same values, through int16's bits
+    (CUDA has few uint16 kernels); any other tensor as it is."""
+    if x.dtype != torch.uint16:
+        return x
+    return x.view(torch.int16).to(torch.int32) & 0xFFFF
+
+
 def unpack_wire_batch(cfg: PlaneRecNetConfig, batch: Mapping,
                       device) -> Dict[str, torch.Tensor]:
     """The JAX package's wire batch (numpy or tensors) -> the dense batch of
@@ -142,7 +150,7 @@ def unpack_wire_batch(cfg: PlaneRecNetConfig, batch: Mapping,
                                       packed.shape[-1] * 8)[..., :w]
     if "depth_q" in batch:
         res = cfg.dataset.depth_resolution or 1e-3
-        batch["depth"] = batch.pop("depth_q").float() * res
+        batch["depth"] = widen_u16(batch.pop("depth_q")).float() * res
     if batch["image"].dtype == torch.uint8:
         batch["image"] = fast_base_transform(batch["image"])
     return batch

@@ -1,0 +1,6 @@
+from planerecnet_tpu_torch.utils.utils import (  # noqa: F401
+    MovingAverage,
+    ProgressBar,
+    SavePath,
+    init_console,
+)
