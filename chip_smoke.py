@@ -3,18 +3,22 @@
     python3 chip_smoke.py [--profile DIR]
     python3 chip_smoke.py --dice
     python3 chip_smoke.py --dcn
+    python3 chip_smoke.py --det
 
 ``--dice`` runs phases 1, 2 and the timed dice/lava shapes of 4 alone and
 prints no result line; ``--dcn`` runs phases 1, 2, the im2col's serving
 shapes of 3 and the training shapes of 4 (im2col and scatter, timed beside
-their bounds and library calls) alone and prints no result line. Both time
-the kernels of the package beside the script, so that two trees' kernels
-can be compared on one card.
+their bounds and library calls) alone and prints no result line; ``--det``
+runs phases 1, 2 and all of 4's scatter and dice/lava checks, with the
+deterministic variants, and prints no result line. They time the kernels
+of the package beside the script, so that two trees' kernels can be
+compared on one card.
 
 1. device: the card's name and power limit (nvidia-smi).
 2. build: one ``nvcc`` per source in ``planerecnet_tpu_torch/csrc/``
    (dcn_im2col, dcn_scatter, dice_lava), all started together, for sm_90a
-   into ``planerecnet_tpu_torch/_build/``.
+   into ``planerecnet_tpu_torch/_build/``; fails if ptxas reports more
+   spill stores for a dice/lava kernel than ``DICE_SPILL_LIMITS`` records.
 3. kernel: the deformable im2col kernel against its plain PyTorch version at
    the six distinct DCN layer shapes of PlaneRecNet-50 at batch 8, 480x640,
    in f32 and bf16; timed beside the plain version, the ``F.grid_sample``
@@ -37,7 +41,12 @@ can be compared on one card.
    (K=128) and of the base preset (K=256), one 10-iteration window each,
    bound at the 3xTF32 tensor-core rate and at the f32 rate; and the DCN
    Function's gradients against autograd of the plain forward at a small
-   shape.
+   shape. Every scatter and dice/lava check also runs the kernel's
+   deterministic variant (``deterministic=True``, what
+   ``--reproductablity`` trains with): two launches on the same inputs
+   must give the same bits and agree with the plain version at the same
+   tolerance, the scatter's with the CPU plain version in every bit at the
+   six training shapes; each is timed beside its atomic kernel.
 5. inference main path: ``PlaneRecNetRunner(PlaneRecNet_50_config)`` with
    seeded, perturbed weights answers 3 requests of 8 distinct 480x640
    frames; the im2col's launch count must rise by 13 per request.
@@ -51,7 +60,8 @@ can be compared on one card.
    synthetic batch in the JAX package's layout: 1 warm-up step, 6 timed
    steps, 20 in all. The loss must be finite, fall, and move the weights;
    the launch counts must rise per step by 26 (im2col: forward, and the
-   backward's unmodulated samples), 13 (scatter), 4 and 4 (dice/lava).
+   backward's unmodulated samples), 13 (scatter), 4 and 4 (dice/lava),
+   and the deterministic variants' not at all.
    One untimed step logs the spread of the DCN layers' offsets.
 8. training CPU against GPU: one step of the tiny preset on the same
    weights, batch and VNL indices on both devices, TF32 off.
@@ -59,19 +69,32 @@ can be compared on one card.
    images at 480x640, seed 0) written by the port's ``synth_scenes``;
    ``planerecnet_tpu_torch.train.main`` trains PRN-50 on it (batch 8,
    max_size 640, f32, ``--reproductablity``) for 12 steps and saves, then
-   resumes from ``latest`` for 4 more; every step must launch 26/13/4/4,
-   every loss be finite, the resume start at 12, and the first 3 batches
-   reach the card with their host checksums. Logged: ms/step through the
-   CLI beside the same batch stepped in memory and phase 7's step, the
-   loader's occupancy, the host's ms a batch to read, augment and
-   collate. ``planerecnet_tpu_torch.eval.main`` then scores the
-   checkpoint on the 8 eval images at batch 8 three times: device metrics
-   (its first calls), host metrics, device metrics (timed): 13 im2col
-   launches a request, identical tables and depth metrics. Last, the
-   checkpoint's DCN offsets by layer width.
+   trains the same 12 steps again from scratch into another folder, then
+   resumes the first run from ``latest`` for 4 more; every step must
+   launch the im2col 26 times and the deterministic variants 13/4/4 (the
+   atomic kernels never), every loss be finite, the resume start at 12,
+   the first 3 batches reach the card with their host checksums, and the
+   two 12-step runs give the same losses and checkpoints whose arrays
+   agree in every bit. Logged: ms/step through the CLI beside the same
+   batch stepped in memory, by default and with ``--reproductablity``'s
+   switches and variants, and phase 7's step, the loader's occupancy, the
+   host's ms a batch to read, augment and collate.
+   ``planerecnet_tpu_torch.eval.main`` then scores the resumed checkpoint
+   on the 8 eval images at batch 8 three times: device metrics (its first
+   calls), host metrics, device metrics (timed), and each of the two
+   12-step checkpoints: 13 im2col launches a request, identical tables and
+   depth metrics, the two reproducible runs' too. Last, the checkpoint's
+   DCN offsets by layer width.
+10. entry points, PRN-50 at 480x640: ``torch.save`` of seeded weights
+   loaded back through ``runner.load_weights(".pth")`` gives a
+   bit-identical ``infer``; ``python -m
+   planerecnet_tpu_torch.simple_inference --image`` on a PNG frame writes
+   a seg PNG equal to ``runner.infer``'s masks drawn and a 16-bit depth PNG
+   equal to its depth; ``planerecnet_tpu_torch.bench`` prints its JSON line.
 
-10. with ``--profile DIR`` only: host-clocked stages of one request and a
-   ``torch.profiler`` trace of two requests and of two training steps
+11. with ``--profile DIR`` only: host-clocked stages of one request and a
+   ``torch.profiler`` trace of two requests and of two training steps,
+   by default and with ``--reproductablity``'s switches and variants
    (kernel tables and busy shares printed, traces and tables written to
    DIR).
 
@@ -83,6 +106,7 @@ lists the kernels with their launches, errors and times.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -146,6 +170,28 @@ def close_err(got, want, tol):
     return float(err.max()), bool((err <= tol * (scale + want.abs())).all())
 
 
+def same_bits(a, b) -> bool:
+    """Whether two f32 tensors hold the same bits."""
+    return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
+def det_twice(run, what):
+    """Two launches of a deterministic variant on the same inputs; raises
+    unless every output is bit-identical. Returns the first's outputs."""
+    first, second = run(), run()
+    torch.cuda.synchronize()
+    firsts = first if isinstance(first, tuple) else (first,)
+    seconds = second if isinstance(second, tuple) else (second,)
+    for i, (a, b) in enumerate(zip(firsts, seconds)):
+        if not same_bits(a, b):
+            raise AssertionError(
+                f"{what}: two launches differ in output {i} at "
+                f"{int((a.view(torch.int32) != b.view(torch.int32)).sum())} "
+                f"elements")
+    return first
+
+
 def cuda_time_ms(fn, iters=20, warmup=3):
     for _ in range(warmup):
         fn()
@@ -172,6 +218,38 @@ def phase_device():
     return out[0]
 
 
+# The most bytes of spill stores that ptxas may report for each dice/lava
+# kernel, by (pass, K, deterministic variant): the figures of each one's
+# first build (PERF.md). The K=256 backward holds its 128 dk accumulators
+# in registers and spills 80 bytes since PR 3's ``phase_fence``; without
+# it ~1 KB, which cost a quarter of its time.
+DICE_SPILL_LIMITS = {
+    **{(d, k, det): 0 for d in ("fwd", "bwd") for k in (32, 128, 256)
+       for det in (False, True)},
+    ("bwd", 256, False): 88, ("bwd", 256, True): 156}
+
+
+def dice_spills(ptxas_log):
+    """{(pass, K, deterministic): bytes of spill stores} of every dice/lava
+    kernel in ptxas's report (its mangled names carry the template's K
+    and DET)."""
+    out, fn = {}, None
+    for line in ptxas_log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            fn = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        k = fn and re.search(r"dice_lava_(fwd|bwd)_kernelILi(\d+)ELb([01])E",
+                             fn)
+        if m and k:
+            out[(k.group(1), int(k.group(2)), k.group(3) == "1")] = int(
+                m.group(1))
+        if m:
+            fn = None
+    return out
+
+
 def phase_build():
     from planerecnet_tpu_torch.ops import cuda_build
     t0 = time.perf_counter()
@@ -181,6 +259,18 @@ def phase_build():
     for name, rec in info.items():
         log(f"[build] {rec['path']} in {rec['seconds']:.1f} s")
         log(rec["log"].strip())
+    spills = dice_spills(info["dice_lava"]["log"])
+    if info["dice_lava"]["seconds"] and len(spills) != 12:
+        raise AssertionError(f"ptxas reported {len(spills)} dice/lava "
+                             f"kernels, expected 12: {spills}")
+    log(f"[build] dice/lava spill stores in bytes by (pass, K, "
+        f"deterministic): {sorted(spills.items())}; limits "
+        f"{sorted(DICE_SPILL_LIMITS.items())}")
+    for key, nbytes in spills.items():
+        limit = DICE_SPILL_LIMITS[key]
+        if nbytes > limit:
+            raise AssertionError(f"dice_lava kernel {key} spills {nbytes} "
+                                 f"bytes, above its recorded {limit}")
 
 
 def dcn_inputs(h, w, cin, stride, dtype, seed, spread=8.0, batch=None,
@@ -320,13 +410,24 @@ def scatter_record(dcn_input_grad, dcn_input_grad_plain, idx, cw, dcols,
     log(f"[scatter] {what}: err {err:.3g} (tol {tol} of scale)")
     if not ok:
         raise AssertionError(f"scatter disagrees with plain at {what}")
+    det = det_twice(lambda: dcn_input_grad(idx, cw, dcols, h, w,
+                                           deterministic=True),
+                    f"scatter_det at {what}")
+    det_err, ok = close_err(det, want, tol)
+    log(f"[scatter-det] {what}: two launches bit-identical; err "
+        f"{det_err:.3g} against the plain version on the card (tol {tol} of "
+        f"scale)")
+    if not ok or not torch.isfinite(det).all():
+        raise AssertionError(f"scatter_det disagrees with plain at {what}")
     b, _, c = dcols.shape
     ms = cuda_time_ms(lambda: dcn_input_grad(idx, cw, dcols, h, w))
+    det_ms = cuda_time_ms(lambda: dcn_input_grad(idx, cw, dcols, h, w,
+                                                 deterministic=True))
     adds = int((cw != 0).sum())   # zero weight: out of map or skipped
     nbytes = (idx.numel() + cw.numel() + dcols.numel() + b * h * w * c) * 4
     b_ms, b_by = bound(nbytes, 2 * adds * c)
     return dict(ms=ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
-                bytes=nbytes)
+                bytes=nbytes, det_ms=det_ms, det_err=det_err, det=det)
 
 
 def phase_scatter(cases=True):
@@ -394,6 +495,19 @@ def phase_scatter(cases=True):
         rec = scatter_record(dcn_input_grad, dcn_input_grad_plain, idx, cw,
                              dcols, h, w, f"{name} +-8 px")
         worst = max(worst, rec["max_abs_err"])
+        # The variant sums in the CPU plain version's order with its
+        # roundings: count the elements whose bits differ from it.
+        cpu = dcn_input_grad_plain(idx.cpu(), cw.cpu(), dcols.cpu(), h, w)
+        rec["det_cpu_bits_differ"] = int(
+            (rec.pop("det").cpu().view(torch.int32)
+             != cpu.view(torch.int32)).sum())
+        log(f"[scatter-det] {name} +-8 px: {rec['det_cpu_bits_differ']} of "
+            f"{cpu.numel()} elements differ in their bits from the plain "
+            f"version on the CPU")
+        if rec["det_cpu_bits_differ"]:
+            raise AssertionError(f"scatter_det at {name} is not the CPU plain "
+                                 f"version's sum")
+        del cpu
         grad_out = (dcols.reshape(BATCH, ho * wo, 9, cin)
                     * mask.reshape(BATCH, ho * wo, 9, 1)).permute(
                         0, 3, 1, 2).contiguous()
@@ -410,12 +524,16 @@ def phase_scatter(cases=True):
         idx_t, cw_t = dcn.scatter_inputs(off_t, mask_t, h, w, stride=stride)
         tr = scatter_record(dcn_input_grad, dcn_input_grad_plain, idx_t,
                             cw_t, dcols, h, w, f"{name} N(0, {std}^2) px")
+        tr.pop("det")
         worst = max(worst, tr["max_abs_err"])
         rec.update(shape=name, layers=layers, plain_ms=plain_ms,
                    library_ms=lib_ms, train_offsets_ms=tr["ms"],
-                   train_offsets_bound_ms=tr["bound_ms"])
-        log(f"[scatter] {name}: +-8 px {rec['ms']:.4f} ms, N(0, {std}^2) px "
-            f"{tr['ms']:.4f} ms, plain {plain_ms:.4f} ms, "
+                   train_offsets_bound_ms=tr["bound_ms"],
+                   det_train_offsets_ms=tr["det_ms"],
+                   det_err=max(rec["det_err"], tr["det_err"]))
+        log(f"[scatter] {name}: +-8 px {rec['ms']:.4f} ms (deterministic "
+            f"{rec['det_ms']:.4f}), N(0, {std}^2) px {tr['ms']:.4f} ms "
+            f"(deterministic {tr['det_ms']:.4f}), plain {plain_ms:.4f} ms, "
             f"grid_sampler_2d_backward {lib_ms:.4f} ms, bound "
             f"{rec['bound_ms']:.4f} / {tr['bound_ms']:.4f} ms "
             f"({rec['bound_by']}), {rec['bytes'] / rec['ms'] / 1e6:.1f} / "
@@ -463,13 +581,20 @@ def scatter_cases(dcn, dcn_input_grad, dcn_input_grad_plain):
             raise AssertionError(f"{what}: expected flat tiles, got {plan}")
         got = dcn_input_grad(idx, cw, dcols, h, w)
         want = dcn_input_grad_plain(idx, cw, dcols, h, w)
+        det = det_twice(lambda: dcn_input_grad(idx, cw, dcols, h, w,
+                                               deterministic=True),
+                        f"scatter_det: {what}")
         torch.cuda.synchronize()
         err, ok = close_err(got, want, tol)
+        det_err, det_ok = close_err(det, want, tol)
         log(f"[scatter-case] {what} ({b}x{h}x{w}x{c}/s{stride}, R={r}, "
-            f"{plan}): err {err:.3g} (tol {tol} of scale)")
+            f"{plan}): err {err:.3g}, deterministic variant {det_err:.3g} "
+            f"(two launches bit-identical) (tol {tol} of scale)")
         if not ok or not torch.isfinite(got).all():
             raise AssertionError(f"scatter disagrees with plain: {what}")
-        worst = max(worst, err)
+        if not det_ok or not torch.isfinite(det).all():
+            raise AssertionError(f"scatter_det disagrees with plain: {what}")
+        worst = max(worst, err, det_err)
     return worst
 
 
@@ -559,11 +684,17 @@ def dice_errors(dl, ins, gs, what, worst):
     want = dl.fused_dice_lava_plain(*ins)
     got_b = dl.dice_lava_bwd(*ins, *gs)
     want_b = dl.fused_dice_lava_bwd_plain(*ins, *gs)
+    det = det_twice(lambda: dl.dice_lava_fwd(*ins, deterministic=True),
+                    f"dice_lava_fwd_det at {what}")
+    det_b = det_twice(lambda: dl.dice_lava_bwd(*ins, *gs, deterministic=True),
+                      f"dice_lava_bwd_det at {what}")
     torch.cuda.synchronize()
     tol = TOL[torch.float32]
     errs, used = {}, {}
-    for name, g, w in zip(("a", "b", "lava", "dk", "dm"), (*got, *got_b),
-                          (*want, *want_b)):
+    names = ("a", "b", "lava", "dk", "dm")
+    names = names + tuple(f"{n}_det" for n in names)
+    for name, g, w in zip(names, (*got, *got_b, *det, *det_b),
+                          (*want, *want_b) * 2):
         errs[name], ok = close_err(g, w, tol)
         # The share of its allowance the worst element uses (1 = at TOL).
         used[name] = float(((g - w).abs() / (tol * (w.abs().max() + w.abs())
@@ -573,9 +704,13 @@ def dice_errors(dl, ins, gs, what, worst):
                                  f"{what}: {errs[name]}")
     log(f"[dice] {what}: errors against plain {json.dumps(errs)} (tol {tol} "
         f"of scale); share of the allowance used "
-        f"{json.dumps({k: round(v, 3) for k, v in used.items()})}")
+        f"{json.dumps({k: round(v, 3) for k, v in used.items()})}; the "
+        f"deterministic variants' two launches bit-identical")
     worst["fwd"] = max(worst["fwd"], errs["a"], errs["b"], errs["lava"])
     worst["bwd"] = max(worst["bwd"], errs["dk"], errs["dm"])
+    worst["fwd_det"] = max(worst["fwd_det"], errs["a_det"], errs["b_det"],
+                           errs["lava_det"])
+    worst["bwd_det"] = max(worst["bwd_det"], errs["dk_det"], errs["dm_det"])
 
 
 def phase_dice(cases=DICE_CASES):
@@ -584,7 +719,7 @@ def phase_dice(cases=DICE_CASES):
     PRN-50 and of the base preset, where they are timed. Returns PRN-50's
     records, with the worst error of every case."""
     from planerecnet_tpu_torch.ops import dice_lava as dl
-    worst = {"fwd": 0.0, "bwd": 0.0}
+    worst = {"fwd": 0.0, "bwd": 0.0, "fwd_det": 0.0, "bwd_det": 0.0}
     for i, case in enumerate(cases):
         ins, gs = dice_inputs(51 + i, **case)
         dice_errors(dl, ins, gs, f"{case}", worst)
@@ -611,6 +746,10 @@ def time_dice(dl, d, seed, worst):
              2 * pq * (d["k"] + d["n"]) + 2 * 2 * pq * d["k"],
              4 * (d["b"] * d["p"] * d["k"] + d["b"] * d["hw"] * d["k"]))):
         ms = cuda_time_ms(fn, iters=10)
+        det_fn = (lambda: dl.dice_lava_fwd(*ins, deterministic=True)) \
+            if name == "fwd" else \
+            (lambda: dl.dice_lava_bwd(*ins, *gs, deterministic=True))
+        det_ms = cuda_time_ms(det_fn, iters=10)
         plain_ms = cuda_time_ms(plain, iters=5)
         extra = 4 * 3 * d["b"] * d["p"] if name == "bwd" else 0
         nbytes = in_bytes + extra + out_bytes
@@ -619,8 +758,10 @@ def time_dice(dl, d, seed, worst):
         out[name] = dict(ms=ms, plain_ms=plain_ms,
                          bound_ms=b_ms, bound_by=b_by, bound_f32_ms=f32_ms,
                          bound_f32_by=f32_by, flops=flops,
-                         max_abs_err=worst[name])
-        log(f"[dice] {name} {d}: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                         max_abs_err=worst[name], det_ms=det_ms,
+                         det_err=worst[f"{name}_det"])
+        log(f"[dice] {name} {d}: {ms:.4f} ms (deterministic variant "
+            f"{det_ms:.4f} ms), plain {plain_ms:.4f} ms, "
             f"bound {b_ms:.4f} ms at 3xTF32 ({b_by}), {f32_ms:.4f} ms at "
             f"f32 ({f32_by}); {flops / 1e9:.2f} GFLOP, "
             f"{flops / ms / 1e9:.2f} TFLOP/s achieved; "
@@ -946,34 +1087,45 @@ def synthetic_batch(b, size, n_cap, seed):
 
 
 def offset_spread(model, step):
-    """Runs ``step`` once with a hook on every DCN offset conv of
-    ``model``; returns, by the convs' input width, the offsets' std and
-    the 50th, 95th and 99th percentiles and the max of |offset| in px, and
-    the share of offsets at one pixel or more."""
-    seen, hooks = {}, []
-    for name, m in model.named_modules():
-        if name.endswith("offset_conv"):
-            hooks.append(m.register_forward_hook(
-                lambda mod, _, out: seen.setdefault(mod.in_channels, []).append(
-                    out.detach().float().flatten())))
-    try:
-        step()
-    finally:
-        for h in hooks:
-            h.remove()
-    out = {}
-    for width, parts in sorted(seen.items()):
-        o = torch.cat(parts)
-        a = o.abs()
-        q = torch.quantile(a, torch.tensor([0.5, 0.95, 0.99],
-                                           device=a.device))
-        out[width] = {"std": round(float(o.std()), 4),
-                      "p50": round(float(q[0]), 4),
-                      "p95": round(float(q[1]), 4),
-                      "p99": round(float(q[2]), 4),
-                      "max": round(float(a.max()), 4),
-                      "share_ge_1px": round(float((a >= 1).float().mean()), 5)}
-    return out
+    """The DCN offsets' spread by layer width over one ``step`` (the
+    closed-loop tool's ``offset_spread``)."""
+    from planerecnet_tpu_torch.tools.closed_loop import offset_spread as f
+    return f(model, step)
+
+
+def kernel_counters():
+    """{name: (wrapper, attribute)} of every kernel's launch count: the
+    atomic kernels' ``launches`` and the deterministic variants'
+    ``det_launches`` on the same wrappers."""
+    from planerecnet_tpu_torch.ops import dcn, dcn_scatter, dice_lava
+    return {"dcn_im2col": (dcn.deform_im2col, "launches"),
+            "dcn_scatter": (dcn_scatter.dcn_input_grad, "launches"),
+            "dice_lava_fwd": (dice_lava.dice_lava_fwd, "launches"),
+            "dice_lava_bwd": (dice_lava.dice_lava_bwd, "launches"),
+            "dcn_scatter_det": (dcn_scatter.dcn_input_grad, "det_launches"),
+            "dice_lava_fwd_det": (dice_lava.dice_lava_fwd, "det_launches"),
+            "dice_lava_bwd_det": (dice_lava.dice_lava_bwd, "det_launches")}
+
+
+def read_counts():
+    return {k: getattr(fn, a) for k, (fn, a) in kernel_counters().items()}
+
+
+def zero_counts():
+    for fn, a in kernel_counters().values():
+        setattr(fn, a, 0)
+
+
+def launches_per_step(deterministic):
+    """A PRN-50 training step's launches: the im2col twice a DCN layer,
+    then the scatter once a layer and dice/lava once a level, atomic or
+    deterministic."""
+    per = {k: 0 for k in kernel_counters()}
+    per["dcn_im2col"] = 2 * DCN_LAYERS_PRN50
+    sfx = "_det" if deterministic else ""
+    per["dcn_scatter" + sfx] = DCN_LAYERS_PRN50
+    per["dice_lava_fwd" + sfx] = per["dice_lava_bwd" + sfx] = DICE_LEVELS
+    return per
 
 
 def phase_train(cfg, card):
@@ -981,14 +1133,7 @@ def phase_train(cfg, card):
     losses, seeded perturbed weights, one fixed batch. Returns the state,
     the batch and the launch counts of the timed steps."""
     from planerecnet_tpu_torch import trainer
-    from planerecnet_tpu_torch.ops import dcn, dcn_scatter, dice_lava
-    counters = {"dcn_im2col": dcn.deform_im2col,
-                "dcn_scatter": dcn_scatter.dcn_input_grad,
-                "dice_lava_fwd": dice_lava.dice_lava_fwd,
-                "dice_lava_bwd": dice_lava.dice_lava_bwd}
-    per_step = {"dcn_im2col": 2 * DCN_LAYERS_PRN50,
-                "dcn_scatter": DCN_LAYERS_PRN50,
-                "dice_lava_fwd": DICE_LEVELS, "dice_lava_bwd": DICE_LEVELS}
+    per_step = launches_per_step(deterministic=False)
     state = trainer.create_train_state(cfg, seed=0, device="cuda")
     perturb_(state.model, seed=1)
     p0 = [p.detach().clone() for p in state.model.parameters()]
@@ -998,8 +1143,7 @@ def phase_train(cfg, card):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    for fn in counters.values():
-        fn.launches = 0
+    zero_counts()
     times = []
     for _ in range(TIMED_STEPS):
         t0 = time.perf_counter()
@@ -1010,7 +1154,7 @@ def phase_train(cfg, card):
         for key, v in losses.items():
             if not torch.isfinite(v):
                 raise AssertionError(f"training loss {key} is {float(v)}")
-    launches = {k: fn.launches for k, fn in counters.items()}
+    launches = read_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
     for k, n in launches.items():
         if n != per_step[k] * TIMED_STEPS:
@@ -1163,16 +1307,11 @@ def phase_cli(card, train_ms):
     from planerecnet_tpu_torch import trainer
     from planerecnet_tpu_torch.config import PlaneRecNet_50_config
     from planerecnet_tpu_torch.data import datasets
-    from planerecnet_tpu_torch.ops import dcn, dcn_scatter, dice_lava
+    from planerecnet_tpu_torch.ops import dcn
     from planerecnet_tpu_torch.runner import PlaneRecNetRunner
     from planerecnet_tpu_torch.tools import synth_scenes
-    counters = {"dcn_im2col": dcn.deform_im2col,
-                "dcn_scatter": dcn_scatter.dcn_input_grad,
-                "dice_lava_fwd": dice_lava.dice_lava_fwd,
-                "dice_lava_bwd": dice_lava.dice_lava_bwd}
-    per_step = {"dcn_im2col": 2 * DCN_LAYERS_PRN50,
-                "dcn_scatter": DCN_LAYERS_PRN50,
-                "dice_lava_fwd": DICE_LEVELS, "dice_lava_bwd": DICE_LEVELS}
+    # --reproductablity: the deterministic variants, never the atomics.
+    per_step = launches_per_step(deterministic=True)
     work = tempfile.mkdtemp(prefix="prn_cli_")
     cwd = os.getcwd()
     collate, train_step = datasets.collate_batch, trainer.train_step
@@ -1192,10 +1331,9 @@ def phase_cli(card, train_ms):
             rec["on_card"] = all(isinstance(v, torch.Tensor) and v.is_cuda
                                  for v in batch.values())
             rec["sums"] = {k: wire_checksum(v) for k, v in batch.items()}
-        before = {k: fn.launches for k, fn in counters.items()}
+        before = read_counts()
         losses = train_step(state, batch)
-        rec["launches"] = {k: fn.launches - before[k]
-                           for k, fn in counters.items()}
+        rec["launches"] = {k: n - before[k] for k, n in read_counts().items()}
         rec["losses"] = losses
         steps.append(rec)
         return losses
@@ -1209,39 +1347,63 @@ def phase_cli(card, train_ms):
             f"{time.perf_counter() - t0:.1f} s")
         os.chdir(work)
         datasets.collate_batch, trainer.train_step = collate_probe, step_probe
-        for fn in counters.values():
-            fn.launches = 0
+        zero_counts()
         common = ["--config", "PlaneRecNet_50_config", "--batch_size",
                   str(BATCH), "--dtype", "float32", "--reproductablity",
-                  "--no_tensorboard", "--no_autoscale", "--save_folder",
-                  "weights/"]
+                  "--no_tensorboard", "--no_autoscale"]
+        first_args = common + ["--cfg_overrides",
+                               json.dumps({"max_iter": CLI_ITERS})]
         t0 = time.perf_counter()
-        first = train_cli.main(common + [
-            "--cfg_overrides", json.dumps({"max_iter": CLI_ITERS})])
+        first = train_cli.main(first_args + ["--save_folder", "weights/"])
         t1 = time.perf_counter()
+        # The same run again from scratch: --reproductablity must give the
+        # same checkpoint, bit for bit.
+        again = train_cli.main(first_args + ["--save_folder", "weights_b/"])
+        t2 = time.perf_counter()
         resumed = train_cli.main(common + [
-            "--cfg_overrides",
+            "--save_folder", "weights/", "--cfg_overrides",
             json.dumps({"max_iter": CLI_ITERS + CLI_RESUME}),
             "--resume", "latest"])
-        t2 = time.perf_counter()
-        launches = {k: fn.launches for k, fn in counters.items()}
+        t3 = time.perf_counter()
+        launches = read_counts()
         datasets.collate_batch, trainer.train_step = collate, train_step
-        log(f"[cli] train CLI: {CLI_ITERS} steps in {t1 - t0:.1f} s, "
-            f"resumed {json.dumps({k: resumed[k] for k in ('start_iter', 'iteration')})}"
-            f" in {t2 - t1:.1f} s (model build, per-epoch validation and "
+        log(f"[cli] train CLI: {CLI_ITERS} steps in {t1 - t0:.1f} s, again "
+            f"from scratch in {t2 - t1:.1f} s, resumed "
+            f"{json.dumps({k: resumed[k] for k in ('start_iter', 'iteration')})}"
+            f" in {t3 - t2:.1f} s (model build, per-epoch validation and "
             f"checkpoints included); checkpoint {resumed['checkpoint']}")
         if resumed["start_iter"] != CLI_ITERS or \
                 resumed["iteration"] != CLI_ITERS + CLI_RESUME:
             raise AssertionError(f"resume: {resumed}, expected start at "
                                  f"{CLI_ITERS}")
-        if len(steps) != CLI_ITERS + CLI_RESUME:
+        if len(steps) != 2 * CLI_ITERS + CLI_RESUME:
             raise AssertionError(f"{len(steps)} steps through the CLI")
+        with np.load(first["checkpoint"]) as a, \
+                np.load(again["checkpoint"]) as b:
+            if sorted(a.files) != sorted(b.files):
+                raise AssertionError("--reproductablity: the two runs' "
+                                     "checkpoints hold other arrays")
+            differ = [k for k in a.files
+                      if a[k].dtype != b[k].dtype or a[k].shape != b[k].shape
+                      or a[k].tobytes() != b[k].tobytes()]
+            n_arrays = len(a.files)
+        if differ:
+            raise AssertionError(f"--reproductablity: {len(differ)} of "
+                                 f"{n_arrays} checkpoint arrays differ "
+                                 f"between two runs, e.g. {differ[:5]}")
+        log(f"[cli] --reproductablity: the two {CLI_ITERS}-step runs' "
+            f"checkpoints agree in every bit of all {n_arrays} arrays")
         for i, rec in enumerate(steps):
             if rec["launches"] != per_step:
                 raise AssertionError(f"CLI step {i}: launches "
                                      f"{rec['launches']}, expected {per_step}")
         totals = torch.stack([v for rec in steps
                               for v in rec["losses"].values()])
+        rep_a, rep_b = steps[:CLI_ITERS], steps[CLI_ITERS:2 * CLI_ITERS]
+        if any(float(x["losses"][k]) != float(y["losses"][k])
+               for x, y in zip(rep_a, rep_b) for k in x["losses"]):
+            raise AssertionError("--reproductablity: the two runs' losses "
+                                 "differ")
         if not torch.isfinite(totals).all():
             raise AssertionError("a loss through the CLI is not finite: "
                                  + json.dumps([{k: float(v) for k, v in
@@ -1273,12 +1435,29 @@ def phase_cli(card, train_ms):
             torch.cuda.synchronize()
             mem.append((time.perf_counter() - t0) * 1e3)
         del state
+        # The same batch, stepped with --reproductablity's switches and the
+        # kernels' deterministic variants.
+        with train_cli.reproducible_mode(True):
+            state = trainer.create_train_state(
+                PlaneRecNet_50_config, seed=0, device="cuda",
+                deterministic=True)
+            trainer.train_step(state, first_batch[0])
+            det = []
+            for _ in range(4):
+                t0 = time.perf_counter()
+                trainer.train_step(state, first_batch[0])
+                torch.cuda.synchronize()
+                det.append((time.perf_counter() - t0) * 1e3)
+            del state
+        det_ms = float(np.median(det))
         mem_ms = float(np.median(mem))
         log(f"[cli] ms/step through the train CLI {cli_ms:.3f} (median of "
             f"{len(gaps)} steps within epochs 2-{CLI_ITERS // per}: "
             f"{[round(g, 3) for g in gaps]}), batch {shape} u8; the same "
             f"batch in memory, pageable upload each step: {mem_ms:.3f} "
-            f"(median of {len(mem)}); phase 7's in-memory step at "
+            f"(median of {len(mem)}); with --reproductablity's switches and "
+            f"the deterministic variants {det_ms:.3f} "
+            f"({[round(t, 3) for t in det]}); phase 7's in-memory step at "
             f"{BATCH}x{TRAIN_SIZE}x{TRAIN_SIZE}: {train_ms:.3f}; loader "
             f"mean occupancy {first['mean_occupancy']:.3f} and "
             f"{resumed['mean_occupancy']:.3f} (of 2); {card}")
@@ -1288,11 +1467,17 @@ def phase_cli(card, train_ms):
 
         # The first run also pays the eval shapes' first calls (cuDNN's
         # choices); the third, device metrics again, is the timed one.
+        # Then each of the two reproducible runs' checkpoints, which must
+        # give identical tables.
         results = {}
-        for mode in ("first", "host", "device"):
+        for mode, ckpt in (("first", resumed["checkpoint"]),
+                           ("host", resumed["checkpoint"]),
+                           ("device", resumed["checkpoint"]),
+                           ("run A", first["checkpoint"]),
+                           ("run B", again["checkpoint"])):
             dcn.deform_im2col.launches = 0
             res = eval_cli.main([
-                "--trained_model", resumed["checkpoint"], "--config",
+                "--trained_model", ckpt, "--config",
                 "PlaneRecNet_50_config", "--max_images", str(CLI_SPLITS[2]),
                 "--batch_size", str(BATCH), "--score_threshold",
                 CLI_EVAL_THR, "--update_threshold", CLI_EVAL_THR,
@@ -1322,6 +1507,14 @@ def phase_cli(card, train_ms):
                         f"{dev[key]}")
         if dev["detections"] == 0:
             raise AssertionError("eval CLI: no detections")
+        for key in ("box", "mask", "depth", "detections"):
+            if results["run A"][key] != results["run B"][key]:
+                raise AssertionError(
+                    f"--reproductablity: the two runs' eval {key} differ: "
+                    f"{results['run A'][key]} against "
+                    f"{results['run B'][key]}")
+        log("[cli] --reproductablity: the two runs' checkpoints give "
+            "identical eval tables and depth metrics")
 
         runner = PlaneRecNetRunner(PlaneRecNet_50_config, device="cuda")
         runner.load_weights(resumed["checkpoint"])
@@ -1335,12 +1528,98 @@ def phase_cli(card, train_ms):
         datasets.collate_batch, trainer.train_step = collate, train_step
         os.chdir(cwd)
         shutil.rmtree(work, ignore_errors=True)
-    log(f"[cli] launches over the CLI path (both train runs with their "
-        f"validation, the three eval runs) {json.dumps(launches)}")
+    log(f"[cli] launches over the CLI path (the three train runs with their "
+        f"validation, the five eval runs) {json.dumps(launches)}")
     for k, n in launches.items():
-        if n == 0:
+        if per_step[k] and n == 0:
             raise AssertionError(f"{k} never launched on the CLI path")
     return launches
+
+
+BENCH_KEYS = ["metric", "value", "unit", "baseline", "vs_baseline",
+              "sync_roundtrip_ms"]
+
+
+def phase_entry_points(card):
+    """The user entry points that PR 6 added, on the card at PRN-50
+    480x640: a ``.pth`` written with ``torch.save`` from seeded weights and
+    loaded through ``runner.load_weights`` gives a bit-identical
+    ``infer``; ``simple_inference`` on a PNG frame writes a seg and a
+    16-bit depth PNG equal to what ``runner.infer`` of that frame draws
+    and holds; ``bench`` prints its JSON line. Returns the im2col's
+    launches over the phase."""
+    import os
+    import shutil
+    import tempfile
+    from planerecnet_tpu_torch import bench
+    from planerecnet_tpu_torch import simple_inference as si
+    from planerecnet_tpu_torch.config import PlaneRecNet_50_config
+    from planerecnet_tpu_torch.data.image_io import imread, imwrite
+    from planerecnet_tpu_torch.ops import dcn
+    from planerecnet_tpu_torch.runner import PlaneRecNetRunner
+    work = tempfile.mkdtemp(prefix="prn_entry_")
+    dcn.deform_im2col.launches = 0
+    try:
+        a = PlaneRecNetRunner(PlaneRecNet_50_config, seed=0, device="cuda")
+        perturb_(a.model, seed=1)
+        with torch.no_grad():
+            # Every cell scores above score_thr, so that masks are drawn.
+            a.model.inst_head.cate_pred.bias.fill_(2.0)
+        pth = os.path.join(work, "seeded.pth")
+        torch.save(a.model.state_dict(), pth)
+        b = PlaneRecNetRunner(PlaneRecNet_50_config, seed=7, device="cuda")
+        b.load_weights(pth)
+        x = frames(BATCH, HEIGHT, WIDTH, seed=11)
+        want, got = a.infer(x), b.infer(x)
+        torch.cuda.synchronize()
+        for key in want:
+            if not torch.equal(want[key], got[key]) or (
+                    want[key].is_floating_point()
+                    and not same_bits(want[key].float(), got[key].float())):
+                raise AssertionError(f".pth round trip: infer's {key} "
+                                     f"differs")
+        log(f"[entry] torch.save of the seeded state_dict, loaded through "
+            f"runner.load_weights(.pth): infer bit-identical on "
+            f"{BATCH}x{HEIGHT}x{WIDTH} ({int(want['pred_valid'].sum())} "
+            f"detections)")
+
+        png = os.path.join(work, "frame.png")
+        imwrite(png, frames(1, HEIGHT, WIDTH, seed=12)[0].astype(np.uint8))
+        out = os.path.join(work, "frame_seg.png")
+        argv = ["--image", f"{png}:{out}", "--trained_model", pth,
+                "--config", "PlaneRecNet_50_config", "--depth_mode", "gray",
+                "--score_threshold", "0.3"]
+        t0 = time.perf_counter()
+        si.main(argv)
+        cli_s = time.perf_counter() - t0
+        net = si.build_runner(si.parse_args(argv))
+        frame = imread(png).astype(np.float32)   # 480x640: no resize, pad
+        result = si._valid_result(net.infer(frame[None]), 0)
+        seg, depth = si.display_on_frame(result, frame, net.cfg)
+        n_det = 0 if result["pred_scores"] is None else len(
+            result["pred_scores"])
+        if not np.array_equal(imread(out), seg):
+            raise AssertionError("simple_inference: the seg PNG differs from "
+                                 "runner.infer's masks drawn")
+        dep = imread(os.path.join(work, "frame_seg_dep.png"), color=False)
+        if not np.array_equal(dep, (depth * 512.0).astype(np.uint16)):
+            raise AssertionError("simple_inference: the depth PNG differs "
+                                 "from runner.infer's depth")
+        if n_det == 0:
+            raise AssertionError("simple_inference: no detection drawn")
+        log(f"[entry] simple_inference --image on a {HEIGHT}x{WIDTH} PNG "
+            f"({cli_s:.1f} s, model build included): seg PNG equal to "
+            f"runner.infer's {n_det} masks drawn, 16-bit depth PNG equal to "
+            f"its depth x 512")
+
+        res = bench.main(["--iters", "5", "--warmup", "2", "--sync_iters",
+                          "3"])
+        if list(res) != BENCH_KEYS or not res["value"] > 0:
+            raise AssertionError(f"bench: {res}")
+        log(f"[entry] bench: {json.dumps(res)}; {card}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return dcn.deform_im2col.launches
 
 
 def phase_profile(runner, out_dir):
@@ -1409,9 +1688,9 @@ def profile_table(prof, n, what, out_dir, stem, wall_ms):
     prof.export_chrome_trace(os.path.join(out_dir, f"profile_{stem}.json"))
 
 
-def phase_profile_train(state, batch, out_dir):
+def phase_profile_train(state, batch, out_dir, stem="step"):
     """Host-clocked stages of one training step, then a ``torch.profiler``
-    trace of two steps."""
+    trace of two steps (tables and trace named by ``stem``)."""
     from torch.profiler import ProfilerActivity, profile
     from planerecnet_tpu_torch import trainer
     stages = {"unpack": [], "forward+loss": [], "backward": [], "adam": []}
@@ -1424,7 +1703,8 @@ def phase_profile_train(state, batch, out_dir):
         state.optimizer.zero_grad(set_to_none=True)
         preds = state.model(dense["image"])
         losses = trainer.compute_losses(state.cfg, preds, dense,
-                                        generator=state.generator())
+                                        generator=state.generator(),
+                                        deterministic=state.deterministic)
         total = sum(losses.values())
         torch.cuda.synchronize()
         t2 = time.perf_counter()
@@ -1436,7 +1716,7 @@ def phase_profile_train(state, batch, out_dir):
         t4 = time.perf_counter()
         for key, dt in zip(stages, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
             stages[key].append(dt * 1e3)
-    log("[profile] training step, host-clocked stages, ms (median of 3): "
+    log(f"[profile] training {stem}, host-clocked stages, ms (median of 3): "
         + json.dumps({k: float(np.median(v)) for k, v in stages.items()}))
     n = 2
     with profile(activities=[ProfilerActivity.CPU,
@@ -1446,7 +1726,8 @@ def phase_profile_train(state, batch, out_dir):
             trainer.train_step(state, batch)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    profile_table(prof, n, "training steps", out_dir, "step", wall_ms)
+    profile_table(prof, n, f"training steps ({stem})", out_dir, stem,
+                  wall_ms)
 
 
 def main():
@@ -1463,6 +1744,10 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     if "--dice" in sys.argv:
         phase_dice(cases=())
+        return 0
+    if "--det" in sys.argv:
+        phase_scatter(cases=True)
+        phase_dice()
         return 0
     cases = "--dcn" not in sys.argv
     records, worst = phase_kernel(dcn)
@@ -1497,9 +1782,20 @@ def main():
     state, batch, launches, train_ms, _ = phase_train(train_cfg, card)
     phase_train_cpu_vs_gpu()
     cli_launches = phase_cli(card, train_ms)
+    entry_launches = phase_entry_points(card)
     if "--profile" in sys.argv:
         out_dir = sys.argv[sys.argv.index("--profile") + 1]
         phase_profile_train(state, batch, out_dir)
+        # The same step with --reproductablity's switches and variants.
+        from planerecnet_tpu_torch import train as train_cli
+        from planerecnet_tpu_torch import trainer
+        with train_cli.reproducible_mode(True):
+            det_state = trainer.create_train_state(
+                train_cfg, seed=0, device="cuda", deterministic=True)
+            perturb_(det_state.model, seed=1)
+            trainer.train_step(det_state, batch)
+            phase_profile_train(det_state, batch, out_dir, stem="step_det")
+            del det_state
         from planerecnet_tpu_torch.runner import PlaneRecNetRunner
         runner = PlaneRecNetRunner(PlaneRecNet_50_config, device="cuda")
         perturb_(runner.model, seed=1)
@@ -1511,32 +1807,41 @@ def main():
 
     train_per = (f"one training step of PRN-50 at batch {BATCH}, "
                  f"{TRAIN_SIZE}x{TRAIN_SIZE}, f32")
-    dice_rows = [{
-        "name": f"dice_lava_{d}",
-        "route": "cuda",
-        "source": "planerecnet_tpu_torch/csrc/dice_lava.cu",
-        "replaces": ("planerecnet_tpu/ops/pallas/dice_lava.py:158 "
-                     "(_fused_fwd_impl, kernel _fwd_kernel :49)"
-                     if d == "fwd" else
-                     "planerecnet_tpu/ops/pallas/dice_lava.py:203 "
-                     "(_fused_bwd, kernel _bwd_kernel :80)"),
-        "launches": launches[f"dice_lava_{d}"],
-        "launches_by_path": {"train": launches[f"dice_lava_{d}"],
-                             "cli": cli_launches[f"dice_lava_{d}"]},
-        "max_abs_err": dice[d]["max_abs_err"],
-        "ms": DICE_LEVELS * dice[d]["ms"],
-        "plain_ms": DICE_LEVELS * dice[d]["plain_ms"],
-        "bound_ms": DICE_LEVELS * dice[d]["bound_ms"],
-        "bound_by": dice[d]["bound_by"],
-        "bound_f32_ms": DICE_LEVELS * dice[d]["bound_f32_ms"],
-        "bound_rates": "bound_ms: the products at the 3xTF32 tensor-core "
-                       "rate (495/3 TFLOP/s), the units they run on; "
-                       "bound_f32_ms: at the f32 rate (67 TFLOP/s)",
-        "library_ms": None,
-        "library": "none: no single PyTorch call computes it",
-        "per": f"{train_per}: {DICE_LEVELS} launches at {DICE}",
-        "card": card,
-    } for d in ("fwd", "bwd")]
+    def dice_row(d, det):
+        name = f"dice_lava_{d}" + ("_det" if det else "")
+        key = "det_" if det else ""
+        return {
+            "name": name,
+            "route": "cuda",
+            "source": "planerecnet_tpu_torch/csrc/dice_lava.cu",
+            "replaces": ("planerecnet_tpu/ops/pallas/dice_lava.py:158 "
+                         "(_fused_fwd_impl, kernel _fwd_kernel :49)"
+                         if d == "fwd" else
+                         "planerecnet_tpu/ops/pallas/dice_lava.py:203 "
+                         "(_fused_bwd, kernel _bwd_kernel :80)"),
+            # Each kernel's main path: the atomic one's phase 7, the
+            # deterministic variant's phase 9 (--reproductablity).
+            "launches": cli_launches[name] if det else launches[name],
+            "launches_by_path": {"train": launches[name],
+                                 "cli": cli_launches[name]},
+            "max_abs_err": dice[d][("det_err" if det else "max_abs_err")],
+            "ms": DICE_LEVELS * dice[d][key + "ms"],
+            "plain_ms": DICE_LEVELS * dice[d]["plain_ms"],
+            "bound_ms": DICE_LEVELS * dice[d]["bound_ms"],
+            "bound_by": dice[d]["bound_by"],
+            "bound_f32_ms": DICE_LEVELS * dice[d]["bound_f32_ms"],
+            "bound_rates": "bound_ms: the products at the 3xTF32 "
+                           "tensor-core rate (495/3 TFLOP/s), the units they "
+                           "run on; bound_f32_ms: at the f32 rate (67 "
+                           "TFLOP/s)",
+            "library_ms": None,
+            "library": "none: no single PyTorch call computes it",
+            "per": f"{train_per}: {DICE_LEVELS} launches at {DICE}",
+            "card": card,
+        }
+
+    dice_rows = [dice_row(d, det) for d in ("fwd", "bwd")
+                 for det in (False, True)]
     print(json.dumps({"kernels": [{
         "name": "dcn_im2col",
         "route": "cuda",
@@ -1546,7 +1851,8 @@ def main():
         "launches": launches["dcn_im2col"],
         "launches_by_path": {"infer": infer_launches,
                              "train": launches["dcn_im2col"],
-                             "cli": cli_launches["dcn_im2col"]},
+                             "cli": cli_launches["dcn_im2col"],
+                             "entry_points": entry_launches},
         "max_abs_err": max(worst, cols_err_train),
         "ms": total(records, "ms"),
         "plain_ms": total(records, "plain_ms"),
@@ -1584,6 +1890,31 @@ def main():
         "per": f"{train_per}: its {DCN_LAYERS_PRN50} DCN layers; ms, "
                f"bound_ms at offsets of +-8 px, train_offsets_* at "
                f"N(0, std^2) px, std {TRAIN_OFFSET_STD} by input width",
+        "card": card,
+    }, {
+        "name": "dcn_scatter_det",
+        "route": "cuda",
+        "source": "planerecnet_tpu_torch/csrc/dcn_scatter.cu",
+        "replaces": "planerecnet_tpu/ops/pallas/dcn_scatter.py:117 "
+                    "(dcn_input_grad_pallas, kernel _make_kernel :43)",
+        "launches": cli_launches["dcn_scatter_det"],
+        "launches_by_path": {"train": launches["dcn_scatter_det"],
+                             "cli": cli_launches["dcn_scatter_det"]},
+        "max_abs_err": max(scatter_err, max(r["det_err"] for r in scatter)),
+        "ms": total(scatter, "det_ms"),
+        "plain_ms": total(scatter, "plain_ms"),
+        "bound_ms": total(scatter, "bound_ms"),
+        "bound_by": bound_by(scatter),
+        "library_ms": total(scatter, "library_ms"),
+        "library": "torch.ops.aten.grid_sampler_2d_backward (bilinear, "
+                   "zeros, align_corners=True, input gradient only)",
+        "train_offsets_ms": total(scatter, "det_train_offsets_ms"),
+        "train_offsets_bound_ms": total(scatter, "train_offsets_bound_ms"),
+        "cpu_plain_bits_differ": sum(r["det_cpu_bits_differ"]
+                                     for r in scatter),
+        "per": f"{train_per}: its {DCN_LAYERS_PRN50} DCN layers, as the "
+               f"dcn_scatter row; launches: phase 9's train CLI runs with "
+               f"--reproductablity",
         "card": card,
     }, *dice_rows]}), flush=True)
     print(json.dumps({"ok": True, "device": {

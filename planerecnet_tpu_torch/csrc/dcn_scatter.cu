@@ -63,6 +63,28 @@
 // differs from the plain version (four index_add_ in row order) by a few
 // f32 ulps of the sum of the contributions' magnitudes (chip_smoke.py
 // measures it at the PRN-50 shapes).
+//
+// prn_dcn_scatter_det_f32 is the variant that sums in a fixed order, for
+// training that must reproduce a run (the train CLI's --reproductablity).
+// It gathers instead of scattering, in four launches:
+//   1. count: each corner in the map with a non-zero weight adds one to
+//      its dx pixel's count (integer atomics: the counts are the same
+//      whatever the order);
+//   2. scan: one block turns the counts into each pixel's start in a list
+//      of entries and sets the counts back to zero;
+//   3. fill: each such corner files (key, weight) at its pixel's start
+//      plus a rank taken with an integer atomic, key = corner * R + row:
+//      the order of the plain version's four index_add_ passes;
+//   4. sum: a warp a dx pixel first orders its entries by key (an entry's
+//      place is the count of the pixel's entries with a smaller key) into
+//      a second list, then its lanes, VEC channels each, sum weight x
+//      dcols over that list, the product and the sum each rounded on its
+//      own (no fused multiply-add), and write the pixel's dx.
+// So every dx element is the plain version's sum, in its order and with
+// its roundings: the CPU's four index_add_ give the same bits. The cost is
+// the gather: each row of dcols is read once for each of its corners, from
+// L2 where neighbouring pixels share rows, and the entry lists (8 bytes a
+// corner, twice) go through device memory; the wrapper allocates them.
 
 #include <cuda_runtime.h>
 
@@ -461,6 +483,136 @@ int launch(const int2* idx, const float4* cw, const float* dcols, float* dx,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ------------------------------------------ the deterministic variant --
+
+constexpr int kDetThreads = 256;
+constexpr int kDetWarps = kDetThreads / 32;
+
+// The dx pixel (within its image) of corner k of a row, or -1 when the
+// corner lies outside the map or has weight 0 (it adds exactly 0).
+__device__ __forceinline__ int det_pixel(int2 c, int k, float w, int H,
+                                         int W) {
+  if (w == 0.f) return -1;
+  const int y = c.x + (k >> 1) - 1;
+  const int x = c.y + (k & 1) - 1;
+  if (y < 0 || y >= H || x < 0 || x >= W) return -1;
+  return y * W + x;
+}
+
+// Steps 1 and 3: FILL false counts each pixel's corners; FILL true files
+// them at start + rank, ranked by the count (reset by the scan).
+template <bool FILL>
+__global__ void __launch_bounds__(kDetThreads)
+    det_corners_kernel(const int2* __restrict__ corner_idx,
+                       const float4* __restrict__ corner_w,
+                       int* __restrict__ count, const int* __restrict__ start,
+                       int2* __restrict__ list, long long rows, int R, int H,
+                       int W) {
+  for (long long i = blockIdx.x * (long long)kDetThreads + threadIdx.x;
+       i < rows; i += (long long)gridDim.x * kDetThreads) {
+    const int b = static_cast<int>(i / R);
+    const int r = static_cast<int>(i - (long long)b * R);
+    const int2 c = corner_idx[i];
+    const float4 w4 = corner_w[i];
+    const float ws[4] = {w4.x, w4.y, w4.z, w4.w};
+    int* cnt = count + (size_t)b * H * W;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int p = det_pixel(c, k, ws[k], H, W);
+      if (p < 0) continue;
+      if constexpr (FILL) {
+        const size_t px = (size_t)b * H * W + p;
+        const int at = start[px] + atomicAdd(cnt + p, 1);
+        list[at] = make_int2(k * R + r, __float_as_int(ws[k]));
+      } else {
+        atomicAdd(cnt + p, 1);
+      }
+    }
+  }
+}
+
+// Step 2, one block: start[p] = sum of count[q < p], start[n] = the total;
+// count is zeroed for the fill's ranks. Each thread takes a run of pixels.
+__global__ void __launch_bounds__(1024)
+    det_scan_kernel(int* __restrict__ count, int* __restrict__ start, int n) {
+  __shared__ int s_warp[32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const int per = (n + blockDim.x - 1) / blockDim.x;
+  const int lo = min(n, (int)threadIdx.x * per), hi = min(n, lo + per);
+  int run = 0;
+  for (int p = lo; p < hi; ++p) run += count[p];
+  int incl = run;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int v = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += v;
+  }
+  if (lane == 31) s_warp[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    int v = lane < nwarps ? s_warp[lane] : 0;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int u = __shfl_up_sync(0xffffffffu, v, o);
+      if (lane >= o) v += u;
+    }
+    s_warp[lane] = v;   // inclusive over the warps
+  }
+  __syncthreads();
+  int base = (warp ? s_warp[warp - 1] : 0) + incl - run;
+  for (int p = lo; p < hi; ++p) {
+    start[p] = base;
+    base += count[p];
+    count[p] = 0;
+  }
+  if (threadIdx.x == 0) start[n] = s_warp[nwarps - 1];
+}
+
+// Step 4: a warp a dx pixel (see the header).
+template <int VEC>
+__global__ void __launch_bounds__(kDetThreads)
+    det_sum_kernel(const int* __restrict__ start,
+                   const int2* __restrict__ list, int2* sorted,
+                   const float* __restrict__ dcols, float* __restrict__ dx,
+                   int npix, int HW, int R, int C) {
+  const int lane = threadIdx.x & 31;
+  for (int px = blockIdx.x * kDetWarps + (threadIdx.x >> 5); px < npix;
+       px += gridDim.x * kDetWarps) {
+    const int s = start[px], e = start[px + 1];
+    for (int i = s + lane; i < e; i += 32) {
+      const int2 en = list[i];
+      int place = s;
+      for (int j = s; j < e; ++j) place += list[j].x < en.x;
+      sorted[place] = en;
+    }
+    __threadfence_block();
+    __syncwarp();
+    const float* dc = dcols + (size_t)(px / HW) * R * C;
+    float* out = dx + (size_t)px * C;
+    for (int c0 = lane * VEC; c0 < C; c0 += 32 * VEC) {
+      Vec<VEC> acc;
+#pragma unroll
+      for (int q = 0; q < VEC; ++q) acc.v[q] = 0.f;
+      for (int i = s; i < e; ++i) {
+        const int2 en = sorted[i];
+        const float w = __int_as_float(en.y);
+        const Vec<VEC> d = *reinterpret_cast<const Vec<VEC>*>(
+            dc + (size_t)(en.x % R) * C + c0);
+#pragma unroll
+        for (int q = 0; q < VEC; ++q)
+          acc.v[q] = __fadd_rn(acc.v[q], __fmul_rn(w, d.v[q]));
+      }
+      *reinterpret_cast<Vec<VEC>*>(out + c0) = acc;
+    }
+  }
+}
+
+int det_blocks(long long work, int per_block, int cap) {
+  const long long b = (work + per_block - 1) / per_block;
+  return static_cast<int>(b < cap ? (b > 0 ? b : 1) : cap);
+}
+
 }  // namespace
 
 extern "C" {
@@ -496,6 +648,55 @@ int prn_dcn_scatter_f32(const void* corner_idx, const void* corner_w,
                    reinterpret_cast<uintptr_t>(dx) % 16 == 0;
   if (vec) return launch<4>(idx, cw, dc, out, B, R, H, W, C, plan, s);
   return launch<1>(idx, cw, dc, out, B, R, H, W, C, plan, s);
+}
+
+// The deterministic variant (see the header): the same arguments as
+// prn_dcn_scatter_f32 but for the plan, and its workspace: count (B*H*W
+// int32, zeroed), start (B*H*W + 1 int32), list and sorted (4*B*R int2
+// each, on 8-byte boundaries). dx (B, H, W, C) f32 is fully written.
+// Returns the cudaError_t of the first launch that failed, else 0.
+int prn_dcn_scatter_det_f32(const void* corner_idx, const void* corner_w,
+                            const void* dcols, void* dx, void* count,
+                            void* start, void* list, void* sorted, int B,
+                            int R, int H, int W, int C, void* stream) {
+  const long long rows = (long long)B * R;
+  const long long npix = (long long)B * H * W;
+  if (B <= 0 || R <= 0 || H <= 0 || W <= 0 || C <= 0 ||
+      4 * rows >= INT_MAX || npix >= INT_MAX ||
+      reinterpret_cast<uintptr_t>(corner_idx) % 8 != 0 ||
+      reinterpret_cast<uintptr_t>(corner_w) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(list) % 8 != 0 ||
+      reinterpret_cast<uintptr_t>(sorted) % 8 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int2* idx = static_cast<const int2*>(corner_idx);
+  const float4* cw = static_cast<const float4*>(corner_w);
+  int* cnt = static_cast<int*>(count);
+  int* st = static_cast<int*>(start);
+  int2* ls = static_cast<int2*>(list);
+  int2* so = static_cast<int2*>(sorted);
+  const int row_blocks = det_blocks(rows, kDetThreads, 132 * 16);
+  det_corners_kernel<false><<<row_blocks, kDetThreads, 0, s>>>(
+      idx, cw, cnt, st, ls, rows, R, H, W);
+  if (cudaError_t e = cudaGetLastError()) return static_cast<int>(e);
+  det_scan_kernel<<<1, 1024, 0, s>>>(cnt, st, static_cast<int>(npix));
+  if (cudaError_t e = cudaGetLastError()) return static_cast<int>(e);
+  det_corners_kernel<true><<<row_blocks, kDetThreads, 0, s>>>(
+      idx, cw, cnt, st, ls, rows, R, H, W);
+  if (cudaError_t e = cudaGetLastError()) return static_cast<int>(e);
+  const int sum_blocks = det_blocks(npix, kDetWarps, 132 * 64);
+  const float* dc = static_cast<const float*>(dcols);
+  float* out = static_cast<float*>(dx);
+  const bool vec = (C % 4) == 0 &&
+                   reinterpret_cast<uintptr_t>(dcols) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(dx) % 16 == 0;
+  if (vec)
+    det_sum_kernel<4><<<sum_blocks, kDetThreads, 0, s>>>(
+        st, ls, so, dc, out, static_cast<int>(npix), H * W, R, C);
+  else
+    det_sum_kernel<1><<<sum_blocks, kDetThreads, 0, s>>>(
+        st, ls, so, dc, out, static_cast<int>(npix), H * W, R, C);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

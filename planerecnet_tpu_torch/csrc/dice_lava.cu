@@ -99,6 +99,19 @@
 // otherwise pollute b, dice_lava.py:63). The atomics make a, b, lava and
 // dk vary in their last bits from run to run.
 //
+// Deterministic variants (prn_dice_lava_fwd_det, prn_dice_lava_bwd_det),
+// for training that must reproduce a run: the same kernels with DET set,
+// whose flush stores a block's sums for an image to its own slot of a
+// workspace instead of adding them to a, b, lava or dk with atomics (dk,
+// flushed every kDkTiles tiles, adds to its slot after the first store;
+// one thread owns each element, so in a fixed order). A block's items are
+// a contiguous range, so it meets at most ipb images; its slots are
+// indexed by image - its first image. Then det_reduce_kernel adds, for
+// each output element, the slots of the blocks that met its image, in
+// block order, and adds that sum to the output. Partials are blocks x ipb
+// x 3P floats (forward) and blocks x ipb x P x K (backward: 17 MB at
+// B=8, P=K=128, HW=25600 on 132 SMs); the wrapper allocates them.
+//
 // Shared memory (KB; 1 KB alignment slack included), N = 32 / N = 63:
 //   K    pass  tile  features  dl tiles  kernel rows  targets      total
 //   32   fwd   64    24        -         16           33.8 / 54    74.8 / 95.0
@@ -150,6 +163,11 @@ struct Args {
   int B, P, N, HW;       // N: this launch's instances
   int ldn;               // all instances
   bool lead;             // the first (or only) chunk of N (see the header)
+  // The deterministic variants only: per-block partials (ws_cap floats),
+  // at most ipb images a block (see "Deterministic variants").
+  float* ws;
+  long long ws_cap;
+  int ipb;
 };
 
 // Shared-memory carve, in floats from a 1024-byte aligned base. The
@@ -562,7 +580,7 @@ __device__ void zero_pad_rows(const Args& a, const Ctx& c) {
 
 // ------------------------------------------------------------ forward --
 
-template <int K>
+template <int K, bool DET>
 __global__ void __launch_bounds__(kThreads, 1)
     dice_lava_fwd_kernel(Args a, float* __restrict__ out_a,
                          float* __restrict__ out_b,
@@ -576,6 +594,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   item_range(a.B * ntiles, beg, end);
   if (beg >= end) return;
   const int nbn = c.l.np / 8;
+  const int img0 = beg / ntiles;   // the first image of this block's items
   zero_pad_rows(a, c);
 
   float cacc[kMaxNB][4];
@@ -613,10 +632,20 @@ __global__ void __launch_bounds__(kThreads, 1)
         vl += __shfl_xor_sync(0xffffffffu, vl, o);
       }
       if (c.t == 0 && p < a.P) {
-        atomicAdd(out_a + (size_t)b * a.P + p, va);
-        if (a.lead) {
-          atomicAdd(out_b + (size_t)b * a.P + p, vb);
-          atomicAdd(out_l + (size_t)b * a.P + p, vl);
+        if constexpr (DET) {
+          float* w = a.ws + ((size_t)blockIdx.x * a.ipb + (b - img0)) * 3 *
+                                a.P + p;
+          w[0] = va;
+          if (a.lead) {
+            w[a.P] = vb;
+            w[2 * a.P] = vl;
+          }
+        } else {
+          atomicAdd(out_a + (size_t)b * a.P + p, va);
+          if (a.lead) {
+            atomicAdd(out_b + (size_t)b * a.P + p, vb);
+            atomicAdd(out_l + (size_t)b * a.P + p, vl);
+          }
         }
       }
       sb[h] = 0.f;
@@ -729,7 +758,7 @@ __device__ __forceinline__ void keep(uint32_t& r) {
   asm volatile("" : "+r"(r)::"memory");
 }
 
-template <int K>
+template <int K, bool DET>
 __global__ void __launch_bounds__(kThreads, 1)
     dice_lava_bwd_kernel(Args a, const float* __restrict__ ga,
                          const float* __restrict__ gb,
@@ -758,6 +787,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   item_range(a.B * ntiles, beg, end);
   if (beg >= end) return;
   zero_pad_rows(a, c);
+  const int img0 = beg / ntiles;   // the first image of this block's items
+  bool fresh = true;   // DET: the image's slot has not been stored yet
   const int nk = c.l.nk;
   const int row0 = 16 * c.warp + c.g;    // this thread's slots: row0, row0 + 8
   // kWg: this thread's channels of dk^T, ch0 and ch0 + 8 (at K = 32
@@ -773,6 +804,11 @@ __global__ void __launch_bounds__(kThreads, 1)
   // [k-step][a0..a3], zero past P and N, loaded once per image.
   float ohf[kMaxNB][4];
 
+  // DET: this block's slot for image b (P x K), stored at the image's
+  // first flush and added to at the later ones.
+  auto slot = [&](int b) {
+    return a.ws + ((size_t)blockIdx.x * a.ipb + (b - img0)) * a.P * K;
+  };
   auto flush = [&](int b) {
     if constexpr (kWg) {
       // dka[4 j + e]: channel ch0 + 8 (e >> 1), slot 8 j + 2 t + (e & 1).
@@ -782,24 +818,44 @@ __global__ void __launch_bounds__(kThreads, 1)
         for (int e = 0; e < 4; ++e) {
           const int ch = ch0 + 8 * (e >> 1);
           const int p = 8 * j + 2 * c.t + (e & 1);
-          if (ch < K && p < a.P)
-            atomicAdd(dk + ((size_t)b * a.P + p) * K + ch, dka[4 * j + e]);
+          if (ch < K && p < a.P) {
+            if constexpr (DET) {
+              float* w = slot(b) + (size_t)p * K + ch;
+              *w = fresh ? dka[4 * j + e] : *w + dka[4 * j + e];
+            } else {
+              atomicAdd(dk + ((size_t)b * a.P + p) * K + ch, dka[4 * j + e]);
+            }
+          }
         }
     } else {
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int p = row0 + 8 * h;
         if (p < a.P) {
-          float* row = dk + ((size_t)b * a.P + p) * K;
+          float* row = DET ? slot(b) + (size_t)p * K
+                           : dk + ((size_t)b * a.P + p) * K;
 #pragma unroll
-          for (int nb = 0; nb < KS; ++nb)
-            atomicAdd(reinterpret_cast<float2*>(row + 8 * nb + 2 * c.t),
-                      make_float2(dka[4 * nb + 2 * h], dka[4 * nb + 2 * h + 1]));
+          for (int nb = 0; nb < KS; ++nb) {
+            float2* d = reinterpret_cast<float2*>(row + 8 * nb + 2 * c.t);
+            const float2 v = make_float2(dka[4 * nb + 2 * h],
+                                         dka[4 * nb + 2 * h + 1]);
+            if constexpr (DET) {
+              if (fresh) {
+                *d = v;
+              } else {
+                const float2 o = *d;
+                *d = make_float2(o.x + v.x, o.y + v.y);
+              }
+            } else {
+              atomicAdd(d, v);
+            }
+          }
         }
       }
     }
 #pragma unroll
     for (int i = 0; i < DKR; ++i) dka[i] = 0.f;
+    fresh = false;
   };
 
   prefetch<K, TQ>(a, beg / ntiles, (beg % ntiles) * TQ, 0, c);
@@ -813,6 +869,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     __syncthreads();   // as in the forward
     if (b != cur) {
       if (cur >= 0) flush(cur);
+      fresh = true;
       stage_slots<K>(a, b, c);
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
@@ -1116,33 +1173,118 @@ int prepare(Kernel kernel, size_t bytes, int sms, int items, int& grid) {
   return 0;
 }
 
-template <int K>
+// The deterministic variants' second pass: out_s[b, i] += the sum, over
+// the blocks in order whose items meet image b, of their slot's element
+// (s, i) (slots of `stride` floats, ipb a block; see the header).
+__global__ void __launch_bounds__(256)
+    det_reduce_kernel(const float* __restrict__ ws, float* out0,
+                      float* out1, float* out2, int nout, int len,
+                      int stride, int B, int ntiles, int items, int grid,
+                      int ipb) {
+  extern __shared__ int s_img[];   // each block's first and last image
+  for (int blk = threadIdx.x; blk < grid; blk += blockDim.x) {
+    const int beg = (int)(((long long)items * blk) / grid);
+    const int end = (int)(((long long)items * (blk + 1)) / grid);
+    s_img[2 * blk] = beg < end ? beg / ntiles : 1;
+    s_img[2 * blk + 1] = beg < end ? (end - 1) / ntiles : 0;
+  }
+  __syncthreads();
+  const long long total = (long long)B * nout * len;
+  for (long long idx = blockIdx.x * 256LL + threadIdx.x; idx < total;
+       idx += (long long)gridDim.x * 256) {
+    const int i = (int)(idx % len);
+    const int t = (int)(idx / len);
+    const int o = t % nout, b = t / nout;
+    float acc = 0.f;
+    for (int blk = 0; blk < grid; ++blk) {
+      const int first = s_img[2 * blk], last = s_img[2 * blk + 1];
+      if (b < first || b > last) continue;
+      acc += ws[((size_t)blk * ipb + (b - first)) * stride +
+                (size_t)o * len + i];
+    }
+    float* out = o == 0 ? out0 : (o == 1 ? out1 : out2);
+    out[(size_t)b * len + i] += acc;
+  }
+}
+
+// The persistent grid of one launch and, for a deterministic variant, its
+// tiles an image and the most images a block meets.
+template <int K, bool BWD, bool DET>
+int geometry(const Args& a, int sms, int& grid, int& ntiles, int& ipb) {
+  constexpr int TQ = Tile<K, BWD>::TQ;
+  const size_t bytes = smem_bytes(K, TQ, a.N, BWD);
+  ntiles = (a.HW + TQ - 1) / TQ;
+  const int items = a.B * ntiles;
+  int err;
+  if constexpr (BWD)
+    err = prepare(dice_lava_bwd_kernel<K, DET>, bytes, sms, items, grid);
+  else
+    err = prepare(dice_lava_fwd_kernel<K, DET>, bytes, sms, items, grid);
+  if (err) return err;
+  const int longest = (items + grid - 1) / grid;
+  ipb = (longest - 1) / ntiles + 2 < a.B ? (longest - 1) / ntiles + 2 : a.B;
+  return 0;
+}
+
+// Floats of one launch's partials.
+template <bool BWD>
+long long det_floats(const Args& a, int K, int grid, int ipb) {
+  return (long long)grid * ipb * a.P * (BWD ? K : 3);
+}
+
+int det_reduce(const Args& a, float* o0, float* o1, float* o2, int nout,
+               int len, int stride, int ntiles, int grid, int ipb,
+               cudaStream_t s) {
+  const long long total = (long long)a.B * nout * len;
+  const long long want = (total + 255) / 256;
+  const int blocks = static_cast<int>(want < 132 * 8 ? want : 132 * 8);
+  det_reduce_kernel<<<blocks, 256, 2 * grid * sizeof(int), s>>>(
+      a.ws, o0, o1, o2, nout, len, stride, a.B, ntiles, a.B * ntiles, grid,
+      ipb);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int K, bool DET>
 int launch_fwd(const Args& a, float* out_a, float* out_b, float* out_l,
                int sms, cudaStream_t s) {
   constexpr int TQ = Tile<K, false>::TQ;
   const size_t bytes = smem_bytes(K, TQ, a.N, false);
-  const int items = a.B * ((a.HW + TQ - 1) / TQ);
-  int grid = 0;
-  if (int err = prepare(dice_lava_fwd_kernel<K>, bytes, sms, items, grid))
+  int grid = 0, ntiles = 0, ipb = 0;
+  if (int err = geometry<K, false, DET>(a, sms, grid, ntiles, ipb))
     return err;
-  dice_lava_fwd_kernel<K><<<grid, kThreads, bytes, s>>>(a, out_a, out_b,
-                                                         out_l);
-  return static_cast<int>(cudaGetLastError());
+  Args d = a;
+  d.ipb = ipb;
+  if (DET && det_floats<false>(a, K, grid, ipb) > a.ws_cap)
+    return static_cast<int>(cudaErrorInvalidValue);
+  dice_lava_fwd_kernel<K, DET><<<grid, kThreads, bytes, s>>>(d, out_a, out_b,
+                                                              out_l);
+  if (cudaError_t e = cudaGetLastError()) return static_cast<int>(e);
+  if constexpr (DET)
+    return det_reduce(d, out_a, out_b, out_l, a.lead ? 3 : 1, a.P, 3 * a.P,
+                      ntiles, grid, ipb, s);
+  return 0;
 }
 
-template <int K>
+template <int K, bool DET>
 int launch_bwd(const Args& a, const float* ga, const float* gb,
                const float* gl, float* dk, float* dm, int sms,
                cudaStream_t s) {
   constexpr int TQ = Tile<K, true>::TQ;
   const size_t bytes = smem_bytes(K, TQ, a.N, true);
-  const int items = a.B * ((a.HW + TQ - 1) / TQ);
-  int grid = 0;
-  if (int err = prepare(dice_lava_bwd_kernel<K>, bytes, sms, items, grid))
+  int grid = 0, ntiles = 0, ipb = 0;
+  if (int err = geometry<K, true, DET>(a, sms, grid, ntiles, ipb))
     return err;
-  dice_lava_bwd_kernel<K><<<grid, kThreads, bytes, s>>>(a, ga, gb, gl, dk,
-                                                         dm);
-  return static_cast<int>(cudaGetLastError());
+  Args d = a;
+  d.ipb = ipb;
+  if (DET && det_floats<true>(a, K, grid, ipb) > a.ws_cap)
+    return static_cast<int>(cudaErrorInvalidValue);
+  dice_lava_bwd_kernel<K, DET><<<grid, kThreads, bytes, s>>>(d, ga, gb, gl,
+                                                              dk, dm);
+  if (cudaError_t e = cudaGetLastError()) return static_cast<int>(e);
+  if constexpr (DET)
+    return det_reduce(d, dk, nullptr, nullptr, 1, a.P * K, a.P * K, ntiles,
+                      grid, ipb, s);
+  return 0;
 }
 
 Args make_args(const void* kernels, const void* feat, const void* onehot,
@@ -1152,7 +1294,8 @@ Args make_args(const void* kernels, const void* feat, const void* onehot,
               static_cast<const float*>(feat),
               static_cast<const float*>(onehot),
               static_cast<const float*>(targets),
-              static_cast<const float*>(grad), B, P, N, HW, N, true};
+              static_cast<const float*>(grad), B, P, N, HW, N, true,
+              nullptr, 0, 0};
 }
 
 int chunks_of(int N) { return (N + kMaxN - 1) / kMaxN; }
@@ -1180,11 +1323,56 @@ bool valid_shape(int B, int P, int K, int N, int HW) {
          (K == 32 || K == 128 || K == 256);
 }
 
+template <bool DET>
+int fwd_all(const Args& args, int K, float* oa, float* ob, float* ol,
+            int sms, cudaStream_t s) {
+  return per_chunk(args, [&](const Args& a) {
+    switch (K) {
+      case 32: return launch_fwd<32, DET>(a, oa, ob, ol, sms, s);
+      case 128: return launch_fwd<128, DET>(a, oa, ob, ol, sms, s);
+      default: return launch_fwd<256, DET>(a, oa, ob, ol, sms, s);
+    }
+  });
+}
+
+template <bool DET>
+int bwd_all(const Args& args, int K, const float* pa, const float* pb,
+            const float* pl, float* odk, float* odm, int sms,
+            cudaStream_t s) {
+  return per_chunk(args, [&](const Args& a) {
+    switch (K) {
+      case 32: return launch_bwd<32, DET>(a, pa, pb, pl, odk, odm, sms, s);
+      case 128: return launch_bwd<128, DET>(a, pa, pb, pl, odk, odm, sms, s);
+      default: return launch_bwd<256, DET>(a, pa, pb, pl, odk, odm, sms, s);
+    }
+  });
+}
+
+// The most floats any chunk's deterministic launch needs for its partials.
+template <bool BWD>
+long long det_workspace(const Args& args, int K, int sms) {
+  long long need = 0;
+  const int err = per_chunk(args, [&](const Args& a) {
+    int grid = 0, ntiles = 0, ipb = 0, e;
+    switch (K) {
+      case 32: e = geometry<32, BWD, true>(a, sms, grid, ntiles, ipb); break;
+      case 128: e = geometry<128, BWD, true>(a, sms, grid, ntiles, ipb); break;
+      default: e = geometry<256, BWD, true>(a, sms, grid, ntiles, ipb);
+    }
+    if (e) return e;
+    const long long n = det_floats<BWD>(a, K, grid, ipb);
+    need = n > need ? n : need;
+    return 0;
+  });
+  return err ? -err : need;
+}
+
 }  // namespace
 
 extern "C" {
 
-// Kernel launches of one call of either function below for N instances.
+// Kernel launches of one call of any function below for N instances (the
+// deterministic variants' reductions not counted).
 int prn_dice_lava_launches(int N) { return N >= 1 ? chunks_of(N) : 0; }
 
 // All tensors f32, contiguous, on one card, 16-byte aligned. P <= 128,
@@ -1201,19 +1389,10 @@ int prn_dice_lava_fwd(const void* kernels, const void* feat,
                       int grid_x, void* stream) {
   if (!valid_shape(B, P, K, N, HW))
     return static_cast<int>(cudaErrorInvalidValue);
-  float* oa = static_cast<float*>(out_a);
-  float* ob = static_cast<float*>(out_b);
-  float* ol = static_cast<float*>(out_l);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return per_chunk(
-      make_args(kernels, feat, onehot, targets, grad, B, P, N, HW),
-      [&](const Args& a) {
-        switch (K) {
-          case 32: return launch_fwd<32>(a, oa, ob, ol, grid_x, s);
-          case 128: return launch_fwd<128>(a, oa, ob, ol, grid_x, s);
-          default: return launch_fwd<256>(a, oa, ob, ol, grid_x, s);
-        }
-      });
+  return fwd_all<false>(
+      make_args(kernels, feat, onehot, targets, grad, B, P, N, HW), K,
+      static_cast<float*>(out_a), static_cast<float*>(out_b),
+      static_cast<float*>(out_l), grid_x, static_cast<cudaStream_t>(stream));
 }
 
 // ga, gb, gl (B, P); dk (B, P, K) zeroed; dm (B, HW, K) fully written.
@@ -1224,21 +1403,62 @@ int prn_dice_lava_bwd(const void* kernels, const void* feat,
                       int N, int HW, int grid_x, void* stream) {
   if (!valid_shape(B, P, K, N, HW))
     return static_cast<int>(cudaErrorInvalidValue);
-  const float* pa = static_cast<const float*>(ga);
-  const float* pb = static_cast<const float*>(gb);
-  const float* pl = static_cast<const float*>(gl);
-  float* odk = static_cast<float*>(dk);
-  float* odm = static_cast<float*>(dm);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return per_chunk(
-      make_args(kernels, feat, onehot, targets, grad, B, P, N, HW),
-      [&](const Args& a) {
-        switch (K) {
-          case 32: return launch_bwd<32>(a, pa, pb, pl, odk, odm, grid_x, s);
-          case 128: return launch_bwd<128>(a, pa, pb, pl, odk, odm, grid_x, s);
-          default: return launch_bwd<256>(a, pa, pb, pl, odk, odm, grid_x, s);
-        }
-      });
+  return bwd_all<false>(
+      make_args(kernels, feat, onehot, targets, grad, B, P, N, HW), K,
+      static_cast<const float*>(ga), static_cast<const float*>(gb),
+      static_cast<const float*>(gl), static_cast<float*>(dk),
+      static_cast<float*>(dm), grid_x, static_cast<cudaStream_t>(stream));
+}
+
+// Floats of the partials that the deterministic variant of the forward
+// (backward != 0: of the backward) needs at this shape, or minus the
+// cudaError_t of a failed query.
+long long prn_dice_lava_det_workspace(int B, int P, int K, int N, int HW,
+                                      int grid_x, int backward) {
+  if (!valid_shape(B, P, K, N, HW))
+    return -static_cast<long long>(cudaErrorInvalidValue);
+  const Args a = make_args(nullptr, nullptr, nullptr, nullptr, nullptr, B, P,
+                           N, HW);
+  return backward ? det_workspace<true>(a, K, grid_x)
+                  : det_workspace<false>(a, K, grid_x);
+}
+
+// The deterministic variants: the arguments of prn_dice_lava_fwd and
+// prn_dice_lava_bwd, and ws, 16-byte aligned, of ws_floats floats (at least
+// what prn_dice_lava_det_workspace gives). The same outputs, summed in an
+// order fixed by the shape and the card's SM count.
+int prn_dice_lava_fwd_det(const void* kernels, const void* feat,
+                          const void* onehot, const void* targets,
+                          const void* grad, void* out_a, void* out_b,
+                          void* out_l, void* ws, long long ws_floats, int B,
+                          int P, int K, int N, int HW, int grid_x,
+                          void* stream) {
+  if (!valid_shape(B, P, K, N, HW))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Args a = make_args(kernels, feat, onehot, targets, grad, B, P, N, HW);
+  a.ws = static_cast<float*>(ws);
+  a.ws_cap = ws_floats;
+  return fwd_all<true>(a, K, static_cast<float*>(out_a),
+                       static_cast<float*>(out_b), static_cast<float*>(out_l),
+                       grid_x, static_cast<cudaStream_t>(stream));
+}
+
+int prn_dice_lava_bwd_det(const void* kernels, const void* feat,
+                          const void* onehot, const void* targets,
+                          const void* grad, const void* ga, const void* gb,
+                          const void* gl, void* dk, void* dm, void* ws,
+                          long long ws_floats, int B, int P, int K, int N,
+                          int HW, int grid_x, void* stream) {
+  if (!valid_shape(B, P, K, N, HW))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Args a = make_args(kernels, feat, onehot, targets, grad, B, P, N, HW);
+  a.ws = static_cast<float*>(ws);
+  a.ws_cap = ws_floats;
+  return bwd_all<true>(a, K, static_cast<const float*>(ga),
+                       static_cast<const float*>(gb),
+                       static_cast<const float*>(gl), static_cast<float*>(dk),
+                       static_cast<float*>(dm), grid_x,
+                       static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -4,7 +4,9 @@ Counterpart of the repository's ``eval.py``: mask and box mAP (greedy
 matching, COCO-style 101-point interpolation) and the eight depth metrics
 over an annotation split, with the time per image (the first two frames
 left out), or, with ``--output_coco_json``, the detections as COCO result
-files. Runs on ``cuda`` unless ``--device cpu`` is passed.
+files; ``--autopsy`` adds seg/depth image panels of 3 images to
+TensorBoard under ``--log_folder``. Runs on ``cuda`` unless ``--device
+cpu`` is passed.
 """
 
 from __future__ import annotations
@@ -94,6 +96,10 @@ def parse_args(argv=None):
     parser.add_argument("--device", default="cuda",
                         help="Where the model runs: cuda (default; raises "
                              "where there is no card) or cpu.")
+    parser.add_argument("--autopsy", action="store_true",
+                        help="Also write predicted seg/depth image panels "
+                             "to TensorBoard.")
+    parser.add_argument("--log_folder", default="./logs/", type=str)
     return parser.parse_args(argv)
 
 
@@ -173,6 +179,37 @@ def apply_nms_overrides(cfg, args):
 
 def _host(batched: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     return {k: v.cpu().numpy() for k, v in batched.items()}
+
+
+def tensorboard_visual_log(net, dataset, writer, iteration, eval_nums):
+    """Predicted seg/depth panels of ``eval_nums`` random images (the JAX
+    CLI's)."""
+    from planerecnet_tpu_torch.simple_inference import (_valid_result,
+                                                        display_on_frame)
+    indices = list(range(len(dataset)))
+    random.shuffle(indices)
+    for it, image_idx in enumerate(indices[:eval_nums]):
+        image, _, _ = dataset.pull_item(image_idx)
+        frame_ori = dataset.pull_image(image_idx) \
+            if hasattr(dataset, "pull_image") else None
+        batched = net.infer_normalized(image[None], image.shape[:2])
+        result = _valid_result(batched, 0)
+        if frame_ori is None:
+            frame_ori = ((image - image.min())
+                         / max(float(np.ptp(image)), 1e-6) * 255)
+        seg, depth = display_on_frame(
+            result, frame_ori.astype(np.float32), net.cfg, mask_alpha=0.35)
+        h, w = depth.shape
+        crop = depth[min(20, h // 4):h - min(20, h // 4),
+                     min(20, w // 4):w - min(20, w // 4)]
+        vmin, vmax = np.percentile(crop, 1), np.percentile(crop, 99)
+        crop = crop.clip(vmin, vmax)
+        crop = ((crop - crop.min()) / max(float(np.ptp(crop)), 1e-12)
+                * 255).astype(np.uint8)
+        writer.add_image(f"depth/pred/{it}", crop, iteration,
+                         dataformats="HW")
+        writer.add_image(f"seg/pred/{it}", seg[:, :, ::-1], iteration,
+                         dataformats="HWC")
 
 
 def evaluate(net: PlaneRecNetRunner, dataset, during_training=False,
@@ -349,7 +386,27 @@ def main(argv=None) -> Optional[Dict]:
         with open(args.metrics_json, "w") as f:
             json.dump(payload, f, indent=1)
         print(f"Metrics written to {args.metrics_json}")
+    if args.autopsy:
+        autopsy(args, cfg, net, dataset)
     return dict(payload, **stats)
+
+
+def autopsy(args, cfg, net, dataset) -> None:
+    """``--autopsy``: panels of 3 images to ``<log_folder>/autopsy_*``."""
+    import datetime
+    try:
+        from torch.utils.tensorboard import SummaryWriter
+    except ImportError:
+        print("TensorBoard unavailable; skipping --autopsy.")
+        return
+    begin = datetime.datetime.now().strftime("%d%m%Y%H%M%S")
+    logpath = os.path.join(args.log_folder, "autopsy_" + begin + "_" + cfg.name)
+    os.makedirs(logpath, exist_ok=True)
+    writer = SummaryWriter(logpath)
+    try:
+        tensorboard_visual_log(net, dataset, writer, 0, eval_nums=3)
+    finally:
+        writer.close()
 
 
 if __name__ == "__main__":

@@ -29,7 +29,8 @@ from planerecnet_tpu_torch.config import PlaneRecNetConfig
 from planerecnet_tpu_torch.losses.vnl import (sample_vnl_indices,
                                               vnl_loss_from_indices)
 from planerecnet_tpu_torch.ops.dice_lava import fused_dice_lava
-from planerecnet_tpu_torch.ops.image import _resize_weights, resize_bilinear
+from planerecnet_tpu_torch.ops.image import (_resize_weights, reflect_pad,
+                                             resize_bilinear)
 
 
 def dice_loss(input_sig: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
@@ -80,8 +81,7 @@ def compute_gradient_map(depth: torch.Tensor,
     maps with reflect padding, (B, H, W, 1). Written as nine shifted f32
     products rather than a convolution, which cuDNN would run in TF32."""
     b, h, w, _ = depth.shape
-    padded = F.pad(depth.permute(0, 3, 1, 2), (1, 1, 1, 1),
-                   mode="reflect")[:, 0]
+    padded = reflect_pad(depth.permute(0, 3, 1, 2))[:, 0]
     gx = torch.zeros((b, h, w), dtype=depth.dtype, device=depth.device)
     gy = torch.zeros_like(gx)
     for i in range(3):
@@ -240,14 +240,16 @@ def _lava_valid_mask(cfg: PlaneRecNetConfig, gt_depths: torch.Tensor):
 
 def compute_losses(cfg: PlaneRecNetConfig, preds: Dict, batch: Dict,
                    vnl_indices: Optional[Dict[str, torch.Tensor]] = None,
-                   generator: Optional[torch.Generator] = None
-                   ) -> Dict[str, torch.Tensor]:
+                   generator: Optional[torch.Generator] = None,
+                   deterministic: bool = False) -> Dict[str, torch.Tensor]:
     """Weighted loss dict: ins, cat, dpt [, pln] [, lav].
 
     ``preds`` is the model's raw-pred dict, ``batch`` the dense GT batch.
     The VNL loss samples its triplets with ``generator``, unless
     ``vnl_indices`` (as ``losses.vnl.sample_vnl_indices`` returns them, for
     the first ``vnl_max_planes`` valid planes) are given.
+    ``deterministic`` sends the fused dice/lava loss to its kernels'
+    fixed-order variants.
     """
     cate_preds: List[torch.Tensor] = preds["cate_preds"]
     kernel_preds: List[torch.Tensor] = preds["kernel_preds"]
@@ -291,7 +293,7 @@ def compute_losses(cfg: PlaneRecNetConfig, preds: Dict, batch: Dict,
         k_sel = torch.gather(kp, 1, cells[..., None].expand(-1, -1, n_k))
         onehot = F.one_hot(insts, n_inst).float() * pvalid[..., None]
         a, bb, dots = fused_dice_lava(k_sel, mask_flat, onehot, targets_flat,
-                                      grad_low_flat)
+                                      grad_low_flat, deterministic)
         c = torch.gather(target_areas, 1, insts)
         d = 1.0 - (2 * a) / ((bb + 0.001) + (c + 0.001))
         dice_sum = dice_sum + (d * pvalid).sum()

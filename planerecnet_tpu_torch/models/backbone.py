@@ -25,7 +25,9 @@ class DeformableConv2d(nn.Module):
     ``modulator_conv`` K modulators (``2*sigmoid``); offsets are clamped to
     ±max(H, W)/4 of this block's input, then the deformable sampling and the
     product with ``regular_conv``'s weight run as ``ops.dcn.deform_conv2d``.
-    Takes and returns NCHW.
+    Takes and returns NCHW. ``deterministic`` (set by
+    ``PlaneRecNet.set_deterministic``) selects the backward that sums in a
+    fixed order on the card.
     """
 
     def __init__(self, cin: int, cout: int, kernel_size: int = 3,
@@ -43,6 +45,7 @@ class DeformableConv2d(nn.Module):
         self.stride = stride
         self.padding = padding
         self.dtype = dtype
+        self.deterministic = False
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # Sub-pixel sampling positions lose too much precision in bf16.
@@ -61,7 +64,7 @@ class DeformableConv2d(nn.Module):
             modulator.float().permute(0, 2, 3, 1).contiguous(),
             weight.to(dtype), self.regular_conv.bias,
             stride=self.stride, padding=self.padding,
-            kernel_size=self.kernel_size)
+            kernel_size=self.kernel_size, deterministic=self.deterministic)
         return out.permute(0, 3, 1, 2)
 
 

@@ -17,7 +17,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from planerecnet_tpu_torch.models.layers import ReflectConvBNReLU
-from planerecnet_tpu_torch.ops.image import resize_bilinear
+from planerecnet_tpu_torch.ops.image import ReflectPad2d, resize_bilinear
 
 
 class DepthDecoderFPN(nn.Module):
@@ -42,7 +42,7 @@ class DepthDecoderFPN(nn.Module):
         self.latlayer4 = nn.Conv2d(c2, f, 1)
         self.conv4 = ReflectConvBNReLU(f, f2)
         self.deconv4 = ReflectConvBNReLU(2 * f2, f4, upsample=True)
-        self.depth_pred = nn.Sequential(nn.ReflectionPad2d(1),
+        self.depth_pred = nn.Sequential(ReflectPad2d(1),
                                         nn.Conv2d(f4, 1, 3))
 
     def forward(self, feature_maps: Sequence[torch.Tensor],

@@ -12,10 +12,14 @@ from __future__ import annotations
 
 from torch import nn
 
+from planerecnet_tpu_torch.ops.image import ReflectPad2d
+
 
 class ReflectConvBNReLU(nn.Sequential):
     """[2x nearest upsample] + ReflectionPad(1) + 3x3 conv + BN(eps=1e-3) +
     ReLU, the depth decoder's block (with ``upsample``, its ``deconv``).
+    The pad is ``ops.image.ReflectPad2d``, whose backward is deterministic
+    on the card.
 
     The Sequential indices give the reference's state_dict keys: conv at 1
     and BN at 2, or at 2 and 3 behind the upsample.
@@ -24,7 +28,7 @@ class ReflectConvBNReLU(nn.Sequential):
     def __init__(self, cin: int, cout: int, upsample: bool = False):
         layers = ([nn.Upsample(scale_factor=2, mode="nearest")]
                   if upsample else [])
-        super().__init__(*layers, nn.ReflectionPad2d(1),
+        super().__init__(*layers, ReflectPad2d(1),
                          nn.Conv2d(cin, cout, 3),
                          nn.BatchNorm2d(cout, eps=1e-3, momentum=0.01),
                          nn.ReLU())

@@ -77,6 +77,14 @@ class PlaneRecNet(nn.Module):
                     nn.init.zeros_(conv.weight)
                     nn.init.zeros_(conv.bias)
 
+    def set_deterministic(self, flag: bool) -> "PlaneRecNet":
+        """Make every DCN layer's backward sum in a fixed order on the card
+        (the train CLI's ``--reproductablity``)."""
+        for m in self.modules():
+            if isinstance(m, DeformableConv2d):
+                m.deterministic = flag
+        return self
+
     def train(self, mode: bool = True) -> "PlaneRecNet":
         """Train mode; with ``cfg.freeze_bn`` every BatchNorm, backbone and
         depth decoder alike, keeps using and keeping its running

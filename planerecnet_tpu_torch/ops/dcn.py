@@ -16,7 +16,8 @@ ctypes launch leaves its output outside autograd's graph). Its backward is
 the JAX package's hand-written ``_dcn_bwd``: the im2col again with a unit
 mask for the samples, matmuls for dcols and dweight, plain torch gathers
 for dmask and doffset, and the scatter kernel (``ops/dcn_scatter.py``) for
-dx.
+dx, or its deterministic variant when ``deform_conv2d`` is called with
+``deterministic=True``.
 """
 
 from __future__ import annotations
@@ -179,7 +180,7 @@ deform_im2col.launches = 0
 
 
 def _dcn_backward(x, offset, mask, weight, has_bias, dout, stride, padding,
-                  kernel_size):
+                  kernel_size, deterministic=False):
     """The analytic backward of ``deform_conv2d``, term by term the JAX
     package's ``_dcn_bwd``, in f32: (dx, doffset, dmask, dweight, dbias)."""
     b, h, w, cin = x.shape
@@ -222,7 +223,8 @@ def _dcn_backward(x, offset, mask, weight, has_bias, dout, stride, padding,
 
     # dx: the modulated corner weights scatter dcols into the input map.
     corner_idx, contrib_w = _scatter_args(y0, x0, corners, vm, h, w)
-    dx = dcn_input_grad(corner_idx, contrib_w, dcols_r, h, w)
+    dx = dcn_input_grad(corner_idx, contrib_w, dcols_r, h, w,
+                        deterministic=deterministic)
     return dx, doffset, dmask, dweight, dbias
 
 
@@ -253,7 +255,7 @@ class _DeformConv2d(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, offset, mask, weight, bias, stride, padding,
-                kernel_size):
+                kernel_size, deterministic):
         b, _, _, cin = x.shape
         _, ho, wo, _ = offset.shape
         k = kernel_size * kernel_size
@@ -263,7 +265,7 @@ class _DeformConv2d(torch.autograd.Function):
         if bias is not None:
             out = out + bias.to(out.dtype)
         ctx.save_for_backward(x, offset, mask, weight)
-        ctx.geometry = (stride, padding, kernel_size)
+        ctx.geometry = (stride, padding, kernel_size, deterministic)
         ctx.bias_dtype = None if bias is None else bias.dtype
         return out.reshape(b, ho, wo, -1)
 
@@ -276,15 +278,17 @@ class _DeformConv2d(torch.autograd.Function):
         return (dx.to(x.dtype), doffset.to(offset.dtype), dmask.to(mask.dtype),
                 dweight.to(weight.dtype),
                 None if dbias is None else dbias.to(ctx.bias_dtype),
-                None, None, None)
+                None, None, None, None)
 
 
 def deform_conv2d(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
                   weight: torch.Tensor, bias: Optional[torch.Tensor] = None,
                   *, stride: int = 1, padding: int = 1,
-                  kernel_size: int = 3) -> torch.Tensor:
+                  kernel_size: int = 3, deterministic: bool = False
+                  ) -> torch.Tensor:
     """Modulated deformable convolution, NHWC in and out, differentiable in
-    every tensor argument.
+    every tensor argument; with ``deterministic`` its backward sums dx in
+    a fixed order on the card.
 
     x (B, H, W, Cin); offset (B, Ho, Wo, 2K); mask (B, Ho, Wo, K);
     weight (kh, kw, Cin, Cout) HWIO; bias (Cout,) or None.
@@ -295,4 +299,4 @@ def deform_conv2d(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
         raise ValueError(f"weight {tuple(weight.shape)} is not HWIO for "
                          f"{kernel_size}x{kernel_size}x{cin}")
     return _DeformConv2d.apply(x, offset, mask, weight, bias, stride, padding,
-                               kernel_size)
+                               kernel_size, deterministic)

@@ -10,7 +10,9 @@ one pixel; what lands in the margin is dropped.
 ``index_add_`` on the flat padded map, the JAX package's
 ``dcn_input_grad_xla``) and a CUDA tensor to the kernel
 ``csrc/dcn_scatter.cu``, launched as ``scatter_plan`` lays it out (see the
-note there on the design and on ordering).
+note there on the design and on ordering), or, with ``deterministic=True``,
+to its variant there that sums each dx element in the plain version's
+order, so that a run can be reproduced bit for bit.
 """
 
 from __future__ import annotations
@@ -204,11 +206,16 @@ def _library() -> ctypes.CDLL:
                                         + [ctypes.c_int] * 12
                                         + [ctypes.c_void_p])
     lib.prn_dcn_scatter_f32.restype = ctypes.c_int
+    lib.prn_dcn_scatter_det_f32.argtypes = ([ctypes.c_void_p] * 8
+                                            + [ctypes.c_int] * 5
+                                            + [ctypes.c_void_p])
+    lib.prn_dcn_scatter_det_f32.restype = ctypes.c_int
     return lib
 
 
 def dcn_input_grad(corner_idx: torch.Tensor, corner_w: torch.Tensor,
-                   dcols: torch.Tensor, h: int, w: int) -> torch.Tensor:
+                   dcols: torch.Tensor, h: int, w: int,
+                   deterministic: bool = False) -> torch.Tensor:
     """Accumulate the deformable-sampling gradient into the input map.
 
     corner_idx: (B, R, 2) int32, the top-left corner (y0 + 1, x0 + 1) of
@@ -216,8 +223,10 @@ def dcn_input_grad(corner_idx: torch.Tensor, corner_w: torch.Tensor,
     corner_w: (B, R, 4) f32 weights of the corners (00, 01, 10, 11), zero
       where a corner lies outside the map;
     dcols: (B, R, C) f32 upstream gradient rows.
-    Returns dx (B, H, W, C) f32. ``dcn_input_grad.launches`` counts the
-    kernel's launches.
+    Returns dx (B, H, W, C) f32. ``deterministic`` takes the kernel's
+    variant that sums in a fixed order (the plain version's, with its
+    roundings). ``dcn_input_grad.launches`` counts the kernel's launches,
+    ``dcn_input_grad.det_launches`` those of the variant.
     """
     if dcols.device.type == "cpu":
         return dcn_input_grad_plain(corner_idx, corner_w, dcols, h, w)
@@ -242,6 +251,8 @@ def dcn_input_grad(corner_idx: torch.Tensor, corner_w: torch.Tensor,
     if corner_w.data_ptr() % 16:
         corner_w = corner_w.clone()
     b, r, c = dcols.shape
+    if deterministic:
+        return _input_grad_det(corner_idx, corner_w, dcols, h, w)
     dx = torch.zeros((b, h, w, c), dtype=torch.float32, device=dcols.device)
     plan = scatter_plan(b, r, h, w, c)
     with torch.cuda.device(dcols.device):
@@ -254,4 +265,26 @@ def dcn_input_grad(corner_idx: torch.Tensor, corner_w: torch.Tensor,
     return dx
 
 
+def _input_grad_det(corner_idx, corner_w, dcols, h, w):
+    """The deterministic variant's launch: its workspace is a count and a
+    start for every dx pixel and two lists of (key, weight) entries, one
+    for each corner that may land in the map."""
+    b, r, c = dcols.shape
+    dev = dcols.device
+    dx = torch.empty((b, h, w, c), dtype=torch.float32, device=dev)
+    count = torch.zeros(b * h * w, dtype=torch.int32, device=dev)
+    start = torch.empty(b * h * w + 1, dtype=torch.int32, device=dev)
+    lists = torch.empty((2, 4 * b * r, 2), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _library().prn_dcn_scatter_det_f32(
+            corner_idx.data_ptr(), corner_w.data_ptr(), dcols.data_ptr(),
+            dx.data_ptr(), count.data_ptr(), start.data_ptr(),
+            lists[0].data_ptr(), lists[1].data_ptr(), b, r, h, w, c, stream)
+    cuda_build.check_launch(err, "dcn_scatter_det")
+    dcn_input_grad.det_launches += 1
+    return dx
+
+
 dcn_input_grad.launches = 0
+dcn_input_grad.det_launches = 0

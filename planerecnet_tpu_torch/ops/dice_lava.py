@@ -14,7 +14,10 @@ gradient map pulled back to mask resolution):
 instead of saving the (B, P, HW) probabilities. Each sends a CPU tensor to
 its plain PyTorch version (``fused_dice_lava_plain``,
 ``fused_dice_lava_bwd_plain``) and a CUDA tensor to its kernel in
-``csrc/dice_lava.cu``. Like the JAX package's, the backward gives
+``csrc/dice_lava.cu``: with ``deterministic=True`` to the kernel's variant
+that sums its blocks' partials in a fixed order instead of with float
+atomics, so that a run can be reproduced bit for bit (the plain versions
+are deterministic already). Like the JAX package's, the backward gives
 gradients to the kernels and the mask features only.
 """
 
@@ -72,11 +75,37 @@ def _library() -> ctypes.CDLL:
     lib.prn_dice_lava_bwd.argtypes = ([ctypes.c_void_p] * 10
                                       + [ctypes.c_int] * 6
                                       + [ctypes.c_void_p])
+    lib.prn_dice_lava_fwd_det.argtypes = ([ctypes.c_void_p] * 9
+                                          + [ctypes.c_longlong]
+                                          + [ctypes.c_int] * 6
+                                          + [ctypes.c_void_p])
+    lib.prn_dice_lava_bwd_det.argtypes = ([ctypes.c_void_p] * 11
+                                          + [ctypes.c_longlong]
+                                          + [ctypes.c_int] * 6
+                                          + [ctypes.c_void_p])
     lib.prn_dice_lava_launches.argtypes = [ctypes.c_int]
+    lib.prn_dice_lava_det_workspace.argtypes = [ctypes.c_int] * 7
+    lib.prn_dice_lava_det_workspace.restype = ctypes.c_longlong
     for fn in (lib.prn_dice_lava_fwd, lib.prn_dice_lava_bwd,
+               lib.prn_dice_lava_fwd_det, lib.prn_dice_lava_bwd_det,
                lib.prn_dice_lava_launches):
         fn.restype = ctypes.c_int
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _det_workspace_floats(b, p, k, n, hw, grid_x, backward) -> int:
+    """Floats of the partials of a deterministic launch at this shape."""
+    need = _library().prn_dice_lava_det_workspace(b, p, k, n, hw, grid_x,
+                                                  int(backward))
+    cuda_build.check_launch(int(-need) if need < 0 else 0,
+                            "dice_lava workspace query")
+    return int(need)
+
+
+def _workspace(shape, grid_x, backward, device) -> torch.Tensor:
+    return torch.empty(max(_det_workspace_floats(*shape, grid_x, backward),
+                           4), dtype=torch.float32, device=device)
 
 
 def _check_args(kernels, mask_feat, onehot, targets, grad_low):
@@ -116,9 +145,11 @@ def _launch_geometry(name, p, k, device):
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def dice_lava_fwd(kernels, mask_feat, onehot, targets, grad_low):
+def dice_lava_fwd(kernels, mask_feat, onehot, targets, grad_low,
+                  deterministic=False):
     """(a, b, lava), each (B, P) f32. ``dice_lava_fwd.launches`` counts the
-    kernel's launches."""
+    kernel's launches, ``dice_lava_fwd.det_launches`` those of its
+    deterministic variant."""
     shape = _check_args(kernels, mask_feat, onehot, targets, grad_low)
     if kernels.device.type == "cpu":
         return fused_dice_lava_plain(kernels, mask_feat, onehot, targets,
@@ -130,20 +161,31 @@ def dice_lava_fwd(kernels, mask_feat, onehot, targets, grad_low):
     b, p, k, n, hw = shape
     grid_x = _launch_geometry("dice_lava_fwd", p, k, kernels.device)
     out = torch.zeros((3, b, p), dtype=torch.float32, device=kernels.device)
+    outs = (out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr())
     with torch.cuda.device(kernels.device):
         stream = torch.cuda.current_stream(kernels.device).cuda_stream
-        err = _library().prn_dice_lava_fwd(
-            *(t.data_ptr() for t in ins), out[0].data_ptr(),
-            out[1].data_ptr(), out[2].data_ptr(), b, p, k, n, hw, grid_x,
-            stream)
+        if deterministic:
+            ws = _workspace(shape, grid_x, False, kernels.device)
+            err = _library().prn_dice_lava_fwd_det(
+                *(t.data_ptr() for t in ins), *outs, ws.data_ptr(),
+                ws.numel(), b, p, k, n, hw, grid_x, stream)
+        else:
+            err = _library().prn_dice_lava_fwd(
+                *(t.data_ptr() for t in ins), *outs, b, p, k, n, hw, grid_x,
+                stream)
     cuda_build.check_launch(err, "dice_lava_fwd")
-    dice_lava_fwd.launches += _library().prn_dice_lava_launches(n)
+    if deterministic:
+        dice_lava_fwd.det_launches += _library().prn_dice_lava_launches(n)
+    else:
+        dice_lava_fwd.launches += _library().prn_dice_lava_launches(n)
     return out[0], out[1], out[2]
 
 
-def dice_lava_bwd(kernels, mask_feat, onehot, targets, grad_low, ga, gb, gl):
+def dice_lava_bwd(kernels, mask_feat, onehot, targets, grad_low, ga, gb, gl,
+                  deterministic=False):
     """(dk (B, P, K), dm (B, HW, K)) f32 for the output gradients ga, gb, gl
-    (B, P). ``dice_lava_bwd.launches`` counts the kernel's launches."""
+    (B, P). ``dice_lava_bwd.launches`` counts the kernel's launches,
+    ``dice_lava_bwd.det_launches`` those of its deterministic variant."""
     shape = _check_args(kernels, mask_feat, onehot, targets, grad_low)
     if kernels.device.type == "cpu":
         return fused_dice_lava_bwd_plain(kernels, mask_feat, onehot, targets,
@@ -161,37 +203,50 @@ def dice_lava_bwd(kernels, mask_feat, onehot, targets, grad_low, ga, gb, gl):
     dm = torch.empty((b, hw, k), dtype=torch.float32, device=kernels.device)
     with torch.cuda.device(kernels.device):
         stream = torch.cuda.current_stream(kernels.device).cuda_stream
-        err = _library().prn_dice_lava_bwd(
-            *(t.data_ptr() for t in ins), dk.data_ptr(), dm.data_ptr(),
-            b, p, k, n, hw, grid_x, stream)
+        if deterministic:
+            ws = _workspace(shape, grid_x, True, kernels.device)
+            err = _library().prn_dice_lava_bwd_det(
+                *(t.data_ptr() for t in ins), dk.data_ptr(), dm.data_ptr(),
+                ws.data_ptr(), ws.numel(), b, p, k, n, hw, grid_x, stream)
+        else:
+            err = _library().prn_dice_lava_bwd(
+                *(t.data_ptr() for t in ins), dk.data_ptr(), dm.data_ptr(),
+                b, p, k, n, hw, grid_x, stream)
     cuda_build.check_launch(err, "dice_lava_bwd")
-    dice_lava_bwd.launches += _library().prn_dice_lava_launches(n)
+    if deterministic:
+        dice_lava_bwd.det_launches += _library().prn_dice_lava_launches(n)
+    else:
+        dice_lava_bwd.launches += _library().prn_dice_lava_launches(n)
     return dk, dm
 
 
-dice_lava_fwd.launches = 0
-dice_lava_bwd.launches = 0
+dice_lava_fwd.launches = dice_lava_fwd.det_launches = 0
+dice_lava_bwd.launches = dice_lava_bwd.det_launches = 0
 
 
 class _FusedDiceLava(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, kernels, mask_feat, onehot, targets, grad_low):
+    def forward(ctx, kernels, mask_feat, onehot, targets, grad_low,
+                deterministic):
         ins = tuple(t.float().contiguous()
                     for t in (kernels, mask_feat, onehot, targets, grad_low))
         ctx.save_for_backward(*ins)
         ctx.dtypes = (kernels.dtype, mask_feat.dtype)
-        return dice_lava_fwd(*ins)
+        ctx.deterministic = deterministic
+        return dice_lava_fwd(*ins, deterministic=deterministic)
 
     @staticmethod
     def backward(ctx, ga, gb, gl):
         dk, dm = dice_lava_bwd(*ctx.saved_tensors, ga.contiguous(),
-                               gb.contiguous(), gl.contiguous())
-        return dk.to(ctx.dtypes[0]), dm.to(ctx.dtypes[1]), None, None, None
+                               gb.contiguous(), gl.contiguous(),
+                               deterministic=ctx.deterministic)
+        return (dk.to(ctx.dtypes[0]), dm.to(ctx.dtypes[1]), None, None, None,
+                None)
 
 
 def fused_dice_lava(kernels: torch.Tensor, mask_feat: torch.Tensor,
                     onehot: torch.Tensor, targets: torch.Tensor,
-                    grad_low: torch.Tensor):
+                    grad_low: torch.Tensor, deterministic: bool = False):
     """Per-slot dice/lava reductions without materialising the probabilities.
 
     kernels (B, P, K) the selected kernel predictions per positive slot;
@@ -199,6 +254,8 @@ def fused_dice_lava(kernels: torch.Tensor, mask_feat: torch.Tensor,
     slot -> instance one-hot (zero rows for invalid slots); targets
     (B, N, HW) rescaled GT instance masks; grad_low (B, HW) the lava
     gradient map at mask resolution. Returns (a, b, lava), each (B, P) f32,
-    differentiable in ``kernels`` and ``mask_feat``.
+    differentiable in ``kernels`` and ``mask_feat``. ``deterministic``
+    sends CUDA tensors to the kernels' variants that sum in a fixed order.
     """
-    return _FusedDiceLava.apply(kernels, mask_feat, onehot, targets, grad_low)
+    return _FusedDiceLava.apply(kernels, mask_feat, onehot, targets, grad_low,
+                                deterministic)

@@ -106,9 +106,102 @@ def upsample2x_nearest(x: torch.Tensor) -> torch.Tensor:
     return F.interpolate(x, scale_factor=2, mode="nearest")
 
 
+def _reflect_sources(n: int, pad: int) -> np.ndarray:
+    """The input index that each of the n + 2 pad outputs copies."""
+    o = np.abs(np.arange(-pad, n + pad))
+    return np.where(o > n - 1, 2 * (n - 1) - o, o)
+
+
+@functools.lru_cache(maxsize=None)
+def _reflect_folds(n: int, pad: int, device) -> Tuple[torch.Tensor, ...]:
+    """(src, idx, valid): the outputs' sources, and for each input index
+    the outputs that copy it, in increasing order: ``idx[a, i]`` the a-th
+    of them where ``valid[a, i]``."""
+    src = _reflect_sources(n, pad)
+    outs = [np.flatnonzero(src == i) for i in range(n)]
+    m = max(len(o) for o in outs)
+    idx = np.zeros((m, n), np.int64)
+    valid = np.zeros((m, n), bool)
+    for i, o in enumerate(outs):
+        idx[:len(o), i] = o
+        valid[:len(o), i] = True
+    return tuple(torch.from_numpy(a).to(device) for a in (src, idx, valid))
+
+
+class _ReflectPad(torch.autograd.Function):
+    """Reflection padding whose backward sums in a fixed order on every
+    device: each input pixel adds the gradients of the output pixels that
+    copy it in row-major order of the output, the order (and so the
+    rounding) of ``F.pad(mode="reflect")``'s CPU backward. Its CUDA
+    backward adds with atomics, and PyTorch's deterministic mode refuses
+    it."""
+
+    @staticmethod
+    def forward(ctx, x, pad):
+        h, w = x.shape[-2:]
+        sr, ir, vr = _reflect_folds(h, pad, x.device)
+        sc, ic, vc = _reflect_folds(w, pad, x.device)
+        ctx.folds = (ir, vr, ic, vc)
+        # F.pad keeps a channels-last input's layout (in its output and its
+        # gradient), and the convolutions around it take other paths, with
+        # other roundings, on the two layouts.
+        ctx.layout = (torch.channels_last if x.dim() == 4
+                      and not x.is_contiguous()
+                      and x.is_contiguous(memory_format=torch.channels_last)
+                      else torch.contiguous_format)
+        out = x.index_select(-2, sr).index_select(-1, sc)
+        return out.contiguous(memory_format=ctx.layout)
+
+    @staticmethod
+    def backward(ctx, g):
+        ir, vr, ic, vc = ctx.folds
+        acc = 0.0   # as F.pad's gradient starts: zeros, then +=
+        for a in range(ir.shape[0]):
+            rows = g.index_select(-2, ir[a])
+            for b in range(ic.shape[0]):
+                acc = acc + torch.where(vr[a][:, None] & vc[b][None, :],
+                                        rows.index_select(-1, ic[b]), 0.0)
+        return acc.contiguous(memory_format=ctx.layout), None
+
+
 def reflect_pad(x: torch.Tensor, pad: int = 1) -> torch.Tensor:
-    """Reflection padding of the two spatial dims of NCHW ``x``."""
-    return F.pad(x, (pad, pad, pad, pad), mode="reflect")
+    """Reflection padding of the two spatial dims of NCHW ``x``: the
+    values and gradients of ``F.pad(mode="reflect")``, with a backward
+    that is deterministic on the card too (``_ReflectPad``)."""
+    return _ReflectPad.apply(x, pad)
+
+
+class ReflectPad2d(torch.nn.Module):
+    """``nn.ReflectionPad2d`` through ``reflect_pad``; no parameters, so
+    it takes a ``Sequential`` index without moving the state-dict keys."""
+
+    def __init__(self, pad: int = 1):
+        super().__init__()
+        self.pad = pad
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return reflect_pad(x, self.pad)
+
+
+def pad_to_multiple(x: np.ndarray, divisor: int = 32) -> np.ndarray:
+    """Zero-pad an HWC image at the bottom and right so that H and W
+    divide ``divisor`` (host side)."""
+    h, w = x.shape[:2]
+    ext_h, ext_w = (-h) % divisor, (-w) % divisor
+    if ext_h == 0 and ext_w == 0:
+        return x
+    pads = [(0, ext_h), (0, ext_w)] + [(0, 0)] * (x.ndim - 2)
+    return np.pad(x, pads, mode="constant")
+
+
+def calc_size_preserve_ar(img_w: int, img_h: int, max_size: int
+                          ) -> Tuple[int, int]:
+    """(w, h) with the long side ``max_size`` and the aspect kept."""
+    if img_w > img_h:
+        w, h = max_size, img_h / img_w * max_size
+    else:
+        h, w = max_size, img_w / img_h * max_size
+    return int(w), int(h)
 
 
 def fast_base_transform(images_bgr: torch.Tensor) -> torch.Tensor:

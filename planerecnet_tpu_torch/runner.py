@@ -17,6 +17,7 @@ from planerecnet_tpu_torch.config import PlaneRecNetConfig
 from planerecnet_tpu_torch.models.planerecnet import PlaneRecNet
 from planerecnet_tpu_torch.ops.image import fast_base_transform
 from planerecnet_tpu_torch.ops.postprocess import postprocess_batch
+from planerecnet_tpu_torch.utils import checkpoint, torch_convert
 from planerecnet_tpu_torch.utils.weights import (flatten_variables,
                                                  from_jax_variables, load_npz)
 
@@ -62,10 +63,27 @@ class PlaneRecNetRunner:
         runner.model = model
         return runner
 
+    def init_weights(self, backbone_path: Optional[str] = None):
+        """Keep the fresh weights, and with ``backbone_path`` load a
+        torchvision ImageNet ResNet ``.pth`` into the backbone."""
+        if backbone_path:
+            self.model.load_state_dict(torch_convert.convert_backbone_imagenet(
+                torch_convert.load_pth(backbone_path), self.model))
+
+    def save_weights(self, path: str) -> str:
+        """Save the weights as the JAX package does (``.npz``); returns the
+        path written."""
+        return checkpoint.save_weights(path, self.model)
+
     def load_weights(self, path: str):
-        """Load a JAX-package ``.npz`` (weights or a full train state)."""
-        self.model.load_state_dict(from_jax_variables(load_npz(path),
-                                                      self.model))
+        """Load a reference ``.pth`` (``utils/torch_convert.py``) or a
+        ``.npz`` of either package (weights or a full train state)."""
+        if path.endswith(".pth"):
+            state = torch_convert.convert_state_dict(
+                torch_convert.load_pth(path), self.model)
+        else:
+            state = from_jax_variables(load_npz(path), self.model)
+        self.model.load_state_dict(state)
 
     def _batch(self, images) -> torch.Tensor:
         x = torch.as_tensor(np.asarray(images, np.float32)
@@ -123,3 +141,11 @@ class PlaneRecNetRunner:
     def forward_raw(self, images_normalized) -> Dict:
         """The raw-pred dict on already-normalised images."""
         return self.model(self._batch(images_normalized))
+
+    def warmup(self, shape: Optional[Tuple[int, int]] = None):
+        """One request of a zero frame at ``shape`` (default: ``max_size``
+        square), waited for."""
+        h, w = shape or (self.cfg.max_size, self.cfg.max_size)
+        self.infer(np.zeros((1, h, w, 3), np.float32))
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)

@@ -6,14 +6,22 @@ disk through ``SSDAugmentation``, ``BatchIterator`` and a
 stream of its own, then ``trainer.train_step`` per batch. Checkpoints keep
 the ``<name>_<epoch>_<iter>`` codec, ctrl-C writes ``*_interrupt``, resume
 parses the start iteration from the file name, and a batch size other
-than 8 rescales lr, max_iter and lr_steps. Runs on ``cuda`` unless
+than 8 rescales lr, max_iter and lr_steps. A torchvision ImageNet ResNet
+``.pth`` at ``<backbone_folder>/<backbone path>`` initialises the backbone
+(``utils/torch_convert.py``); with TensorBoard, seg/depth panels of two
+valid images are logged every 5000 iterations. Runs on ``cuda`` unless
 ``--device cpu`` is passed. Data parallelism (``--n_devices > 1``,
 ``--multihost``) is not ported yet.
+
+``--reproductablity`` seeds everything from 42 and, before the first CUDA
+call, pins the run to deterministic algorithms (``reproducible_mode``):
+two runs on the same tree give the same checkpoints, bit for bit.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import datetime
 import json
 import math
@@ -33,7 +41,7 @@ from planerecnet_tpu_torch.data import (BaseTransform, BatchIterator,
                                         PrefetchIterator, SSDAugmentation,
                                         build_dataset)
 from planerecnet_tpu_torch.runner import PlaneRecNetRunner, resolve_device
-from planerecnet_tpu_torch.utils import MovingAverage, SavePath
+from planerecnet_tpu_torch.utils import MovingAverage, SavePath, torch_convert
 from planerecnet_tpu_torch.utils.checkpoint import (load_train_state,
                                                     save_train_state)
 
@@ -59,6 +67,37 @@ def host_rss_gb() -> float:
         return 0.0
 
 
+@contextlib.contextmanager
+def reproducible_mode(enabled: bool):
+    """``--reproductablity``'s switches, the reference's cuDNN pin and
+    more: cuBLAS's fixed workspace (``CUBLAS_WORKSPACE_CONFIG``, without
+    which its matmuls raise in this mode), cuDNN deterministic without
+    benchmarking, and ``torch.use_deterministic_algorithms(True)``, so
+    that an op with no deterministic version raises rather than varies.
+    The port's own kernels are not seen by that switch: the train state
+    selects their fixed-order variants (``deterministic=True``). Each
+    switch is put back on exit, for callers in the same process."""
+    if not enabled:
+        yield
+        return
+    cudnn = torch.backends.cudnn
+    saved = (os.environ.get("CUBLAS_WORKSPACE_CONFIG"), cudnn.deterministic,
+             cudnn.benchmark, torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled())
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    cudnn.deterministic, cudnn.benchmark = True, False
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        env, cudnn.deterministic, cudnn.benchmark, mode, warn_only = saved
+        if env is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = env
+        torch.use_deterministic_algorithms(mode, warn_only=warn_only)
+
+
 def compute_validation_metrics(cfg, state, eval_nums, no_bar=True):
     """mAP and depth metrics of the current weights on the valid split,
     through the eval CLI's ``evaluate``; None where the split is
@@ -75,6 +114,35 @@ def compute_validation_metrics(cfg, state, eval_nums, no_bar=True):
         return evaluate(PlaneRecNetRunner.around(cfg, state.model), dataset,
                         during_training=True, eval_nums=eval_nums,
                         no_bar=no_bar)
+    finally:
+        state.model.train()
+
+
+def log_visual_example(cfg, state, writer, iteration, num_images=2):
+    """Predicted seg/depth panels of the first valid images to
+    TensorBoard (the JAX CLI's, every 5000 iterations)."""
+    from planerecnet_tpu_torch.simple_inference import (_valid_result,
+                                                        display_on_frame)
+    try:
+        dataset = build_dataset(cfg, "valid", transform=BaseTransform(cfg))
+    except (FileNotFoundError, AssertionError):
+        return
+    state.model.eval()
+    try:
+        net = PlaneRecNetRunner.around(cfg, state.model)
+        for i in range(min(num_images, len(dataset))):
+            image, _, _ = dataset[i]
+            batched = net.infer_normalized(image[None], image.shape[:2])
+            result = _valid_result(batched, 0)
+            vis = ((image - image.min()) / max(float(np.ptp(image)), 1e-6)
+                   * 255)
+            seg, depth = display_on_frame(result, vis.astype("float32"), cfg,
+                                          mask_alpha=0.35)
+            depth = (depth - depth.min()) / max(float(np.ptp(depth)), 1e-6)
+            writer.add_image(f"seg/pred/{i}", seg[:, :, ::-1], iteration,
+                             dataformats="HWC")
+            writer.add_image(f"depth/pred/{i}", (depth * 255).astype("uint8"),
+                             iteration, dataformats="HW")
     finally:
         state.model.train()
 
@@ -98,7 +166,8 @@ def parse_args(argv=None):
     parser.add_argument("--reproductablity", action="store_true",
                         help="Seed 42 for the weights, the data order and "
                              "augmentation, and numpy's, python's and "
-                             "torch's global generators.")
+                             "torch's global generators; run deterministic "
+                             "algorithms only (reproducible_mode).")
     parser.add_argument("--batch_size", default=8, type=int)
     parser.add_argument("--lr", "--learning_rate", default=None, type=float)
     parser.add_argument("--momentum", default=None, type=float,
@@ -150,6 +219,11 @@ def main(argv=None) -> Dict:
     args = parse_args(argv)
     if args.multihost or (args.n_devices or 1) > 1:
         raise NotImplementedError(NOT_PORTED)
+    with reproducible_mode(args.reproductablity):
+        return _train(args)
+
+
+def _train(args) -> Dict:
     device = resolve_device(args.device)
 
     cfg = set_cfg(args.config)
@@ -192,7 +266,8 @@ def main(argv=None) -> Dict:
         BatchIterator(cfg, dataset, args.batch_size, seed=seed),
         buffer_size=max(args.num_workers, 1), to_device=True, device=device)
     state = trainer.create_train_state(cfg, seed=seed, device=device,
-                                       per_module_lr=args.per_module_lr)
+                                       per_module_lr=args.per_module_lr,
+                                       deterministic=args.reproductablity)
 
     start_iter = max(args.start_iter, 0)
     if args.resume is not None:
@@ -207,13 +282,12 @@ def main(argv=None) -> Dict:
             start_iter = SavePath.from_str(path).iteration
     else:
         backbone_path = os.path.join(args.backbone_folder, cfg.backbone.path)
-        if os.path.exists(backbone_path):
-            raise NotImplementedError(
-                f"{backbone_path}: loading ImageNet weights from a .pth is "
-                f"not ported yet (ROADMAP Queue 1, utils/torch_convert.py); "
-                f"point --backbone_folder elsewhere to train from random "
-                f"weights")
         print("Initializing weights...")
+        if os.path.exists(backbone_path):
+            print(f"Loading the ImageNet backbone {backbone_path}")
+            state.model.load_state_dict(
+                torch_convert.convert_backbone_imagenet(
+                    torch_convert.load_pth(backbone_path), state.model))
 
     writer = None
     if not args.no_tensorboard:
@@ -320,6 +394,8 @@ def main(argv=None) -> Dict:
                           f"ETA: {eta_str} || "
                           f"{time_avg.get_avg() * 1000:.0f} ms/it "
                           f"q: {loader.mean_occupancy():.2f}", flush=True)
+                if writer is not None and iteration % 5000 == 0:
+                    log_visual_example(cfg, state, writer, iteration)
 
                 if iteration % args.save_interval == 0 and iteration > 0:
                     if args.keep_latest and latest_saved is not None:

@@ -16,6 +16,11 @@ Two things follow the JAX package exactly:
 The optimizer is Adam (0.9, 0.999, eps 1e-8) without weight decay (the JAX
 optimizer ignores ``cfg.decay``); ``per_module_lr`` gives the backbone 5x
 and the depth decoder 2x the learning rate.
+
+``create_train_state(deterministic=True)`` sends the step's DCN scatter
+and dice/lava kernels to their variants that sum in a fixed order, so
+that a step on the same state and batch gives the same bits (with
+PyTorch's own deterministic mode, which the train CLI sets).
 """
 
 from __future__ import annotations
@@ -75,6 +80,7 @@ class TrainState:
     seed: int = 0
     step: int = 0        # every step taken
     updates: int = 0     # the steps whose update was applied
+    deterministic: bool = False   # the kernels' fixed-order variants
 
     @property
     def device(self) -> torch.device:
@@ -88,10 +94,11 @@ class TrainState:
 
 def create_train_state(cfg: PlaneRecNetConfig,
                        variables: Optional[Mapping] = None, seed: int = 0,
-                       device="cuda", per_module_lr: bool = False
-                       ) -> TrainState:
+                       device="cuda", per_module_lr: bool = False,
+                       deterministic: bool = False) -> TrainState:
     """A model in train mode (fresh weights from ``seed``, or the JAX
-    package's ``variables``, nested or flat), its optimizer and schedule."""
+    package's ``variables``, nested or flat), its optimizer and schedule.
+    ``deterministic`` selects the kernels' fixed-order variants."""
     device = resolve_device(device)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
@@ -99,9 +106,9 @@ def create_train_state(cfg: PlaneRecNetConfig,
     if variables is not None:
         model.load_state_dict(
             from_jax_variables(flatten_variables(variables), model))
-    model = model.to(device).train()
+    model = model.to(device).train().set_deterministic(deterministic)
     return TrainState(cfg, model, make_optimizer(model, per_module_lr),
-                      lr_schedule(cfg), seed=seed)
+                      lr_schedule(cfg), seed=seed, deterministic=deterministic)
 
 
 def densify_sparse_masks(cfg: PlaneRecNetConfig, batch: Dict) -> Dict:
@@ -171,7 +178,8 @@ def grad_step(state: TrainState, batch: Mapping,
     state.optimizer.zero_grad(set_to_none=True)
     preds = state.model(batch["image"])
     losses = compute_losses(state.cfg, preds, batch, vnl_indices=vnl_indices,
-                            generator=state.generator())
+                            generator=state.generator(),
+                            deterministic=state.deterministic)
     total = sum(losses.values())
     total.backward()
     losses = {k: v.detach() for k, v in losses.items()}

@@ -143,9 +143,12 @@ def test_train_refuses_what_is_not_ported(extra, match):
 
 
 def test_train_refuses_a_backbone_pth(workdir, monkeypatch, tmp_path):
+    """The CLI loads a backbone .pth now (``utils/torch_convert.py``; the
+    loading is held in ``tests/test_torch_port_convert.py``): one that
+    does not load stops it, rather than training from fresh weights."""
     monkeypatch.chdir(workdir)
     (tmp_path / "resnet50-19c8e357.pth").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="torch_convert"):
+    with pytest.raises(EOFError):
         _train(["--backbone_folder", str(tmp_path),
                 "--save_folder", str(tmp_path / "w") + "/"])
 

@@ -610,7 +610,12 @@ def test_port_imports_no_opencv_pil_or_torchvision():
         "    importlib.import_module(m.name)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in"
         " ('cv2', 'PIL', 'torchvision')]\n"
-        "assert not bad, bad\n")
+        "assert not bad, bad\n"
+        "new = ['simple_inference', 'bench', 'tools.closed_loop',"
+        " 'utils.torch_convert']\n"
+        "missing = [m for m in new if pkg.__name__ + '.' + m not in"
+        " sys.modules]\n"
+        "assert not missing, missing\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
