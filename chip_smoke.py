@@ -4,15 +4,17 @@
     python3 chip_smoke.py --dice
     python3 chip_smoke.py --dcn
     python3 chip_smoke.py --det
+    python3 chip_smoke.py --profile-train DIR
 
 ``--dice`` runs phases 1, 2 and the timed dice/lava shapes of 4 alone and
 prints no result line; ``--dcn`` runs phases 1, 2, the im2col's serving
 shapes of 3 and the training shapes of 4 (im2col and scatter, timed beside
 their bounds and library calls) alone and prints no result line; ``--det``
 runs phases 1, 2 and all of 4's scatter and dice/lava checks, with the
-deterministic variants, and prints no result line. They time the kernels
-of the package beside the script, so that two trees' kernels can be
-compared on one card.
+deterministic variants, and prints no result line; ``--profile-train
+DIR`` runs phases 1, 2 and the training step's profile of 11, by default
+and deterministic, alone. They time the kernels of the package beside the
+script, so that two trees' kernels can be compared on one card.
 
 1. device: the card's name and power limit (nvidia-smi).
 2. build: one ``nvcc`` per source in ``planerecnet_tpu_torch/csrc/``
@@ -1730,6 +1732,35 @@ def phase_profile_train(state, batch, out_dir, stem="step"):
                   wall_ms)
 
 
+def profile_det_step(cfg, batch, out_dir):
+    """``phase_profile_train`` of the same step with
+    ``--reproductablity``'s switches and the kernels' variants."""
+    from planerecnet_tpu_torch import train as train_cli
+    from planerecnet_tpu_torch import trainer
+    with train_cli.reproducible_mode(True):
+        state = trainer.create_train_state(cfg, seed=0, device="cuda",
+                                           deterministic=True)
+        perturb_(state.model, seed=1)
+        trainer.train_step(state, batch)
+        phase_profile_train(state, batch, out_dir, stem="step_det")
+
+
+def profile_train_steps(cfg, out_dir):
+    """``--profile-train``: phase 7's step (PRN-50, 8x640x640, seeded
+    perturbed weights, one synthetic batch) profiled by default and
+    deterministic, one state at a time."""
+    from planerecnet_tpu_torch import trainer
+    torch.backends.cudnn.allow_tf32 = True      # as in phase 7
+    batch = synthetic_batch(BATCH, TRAIN_SIZE, cfg.max_instances, seed=3)
+    state = trainer.create_train_state(cfg, seed=0, device="cuda")
+    perturb_(state.model, seed=1)
+    trainer.train_step(state, batch)
+    phase_profile_train(state, batch, out_dir)
+    del state
+    torch.cuda.empty_cache()
+    profile_det_step(cfg, batch, out_dir)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1748,6 +1779,13 @@ def main():
     if "--det" in sys.argv:
         phase_scatter(cases=True)
         phase_dice()
+        return 0
+    # The preset's schedule without its 2000-update warm-up, so that 20
+    # steps on one batch show the loss falling.
+    train_cfg = PlaneRecNet_50_config.copy(dict(lr_warmup_until=0))
+    if "--profile-train" in sys.argv:
+        profile_train_steps(
+            train_cfg, sys.argv[sys.argv.index("--profile-train") + 1])
         return 0
     cases = "--dcn" not in sys.argv
     records, worst = phase_kernel(dcn)
@@ -1776,9 +1814,6 @@ def main():
     runner, infer_launches, _ = phase_main(dcn, PlaneRecNet_50_config, card)
     phase_cpu_vs_gpu(runner, PlaneRecNet_50_config)
     del runner
-    # The preset's schedule without its 2000-update warm-up, so that 20
-    # steps on one batch show the loss falling.
-    train_cfg = PlaneRecNet_50_config.copy(dict(lr_warmup_until=0))
     state, batch, launches, train_ms, _ = phase_train(train_cfg, card)
     phase_train_cpu_vs_gpu()
     cli_launches = phase_cli(card, train_ms)
@@ -1786,16 +1821,7 @@ def main():
     if "--profile" in sys.argv:
         out_dir = sys.argv[sys.argv.index("--profile") + 1]
         phase_profile_train(state, batch, out_dir)
-        # The same step with --reproductablity's switches and variants.
-        from planerecnet_tpu_torch import train as train_cli
-        from planerecnet_tpu_torch import trainer
-        with train_cli.reproducible_mode(True):
-            det_state = trainer.create_train_state(
-                train_cfg, seed=0, device="cuda", deterministic=True)
-            perturb_(det_state.model, seed=1)
-            trainer.train_step(det_state, batch)
-            phase_profile_train(det_state, batch, out_dir, stem="step_det")
-            del det_state
+        profile_det_step(train_cfg, batch, out_dir)
         from planerecnet_tpu_torch.runner import PlaneRecNetRunner
         runner = PlaneRecNetRunner(PlaneRecNet_50_config, device="cuda")
         perturb_(runner.model, seed=1)

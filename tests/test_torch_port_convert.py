@@ -27,7 +27,7 @@ from planerecnet_tpu_torch.utils.torch_convert import (
     convert_backbone_imagenet, convert_state_dict, load_pth)
 from planerecnet_tpu_torch.utils.weights import (flatten_variables,
                                                  from_jax_variables)
-from test_torch_port_model import port_cfg
+from test_torch_port_model import jax_variables, nest, port_cfg
 from test_torch_port_runner import (SIZE, _compare, _normalise, _soft_masks,
                                     _tiny_cfg)
 
@@ -36,10 +36,11 @@ torch.set_num_threads(2)
 
 @pytest.fixture(scope="module")
 def tiny():
-    """The JAX config and model's variables at the runner tests' size."""
+    """The JAX config and a variable tree of its model at the runner
+    tests' size (seeded numpy leaves: the converters read only the tree's
+    paths and shapes)."""
     cfg = _tiny_cfg()
-    runner = JaxRunner(cfg)
-    return cfg, runner.variables
+    return cfg, nest(jax_variables(cfg))
 
 
 def upstream_state_dict(variables, seed=0):
