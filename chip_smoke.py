@@ -223,8 +223,8 @@ def phase_device():
 # The most bytes of spill stores that ptxas may report for each dice/lava
 # kernel, by (pass, K, deterministic variant): the figures of each one's
 # first build (PERF.md). The K=256 backward holds its 128 dk accumulators
-# in registers and spills 80 bytes since PR 3's ``phase_fence``; without
-# it ~1 KB, which cost a quarter of its time.
+# in registers; ``phase_fence`` keeps its spill at 88 bytes of stores
+# (without it ~1 KB, which cost a quarter of its time).
 DICE_SPILL_LIMITS = {
     **{(d, k, det): 0 for d in ("fwd", "bwd") for k in (32, 128, 256)
        for det in (False, True)},
@@ -1543,7 +1543,7 @@ BENCH_KEYS = ["metric", "value", "unit", "baseline", "vs_baseline",
 
 
 def phase_entry_points(card):
-    """The user entry points that PR 6 added, on the card at PRN-50
+    """The user entry points beside the runner, on the card at PRN-50
     480x640: a ``.pth`` written with ``torch.save`` from seeded weights and
     loaded through ``runner.load_weights`` gives a bit-identical
     ``infer``; ``simple_inference`` on a PNG frame writes a seg and a
