@@ -3,24 +3,26 @@
     python3 chip_smoke.py [--profile DIR]
     python3 chip_smoke.py --dice
     python3 chip_smoke.py --dcn
-    python3 chip_smoke.py --det
-    python3 chip_smoke.py --profile-train DIR
+    python3 chip_smoke.py --paths
 
 ``--dice`` runs phases 1, 2 and the timed dice/lava shapes of 4 alone and
 prints no result line; ``--dcn`` runs phases 1, 2, the im2col's serving
 shapes of 3 and the training shapes of 4 (im2col and scatter, timed beside
-their bounds and library calls) alone and prints no result line; ``--det``
-runs phases 1, 2 and all of 4's scatter and dice/lava checks, with the
-deterministic variants, and prints no result line; ``--profile-train
-DIR`` runs phases 1, 2 and the training step's profile of 11, by default
-and deterministic, alone. They time the kernels of the package beside the
-script, so that two trees' kernels can be compared on one card.
+their bounds and library calls) alone and prints no result line; both
+time each deterministic variant beside its atomic kernel. They time the
+kernels of the package beside the script, so that two trees' kernels can
+be compared on one card. ``--paths`` times phase 5's request and phase 7's
+default training step alone (no build phase, no launch checks: it calls
+only ``PlaneRecNetRunner.infer`` and ``trainer.train_step``, so it runs on
+the trees of earlier slices too) and prints no result line.
 
 1. device: the card's name and power limit (nvidia-smi).
 2. build: one ``nvcc`` per source in ``planerecnet_tpu_torch/csrc/``
    (dcn_im2col, dcn_scatter, dice_lava), all started together, for sm_90a
-   into ``planerecnet_tpu_torch/_build/``; fails if ptxas reports more
-   spill stores for a dice/lava kernel than ``DICE_SPILL_LIMITS`` records.
+   into ``planerecnet_tpu_torch/_build/`` (dice_lava afresh even where it
+   is built, for ptxas's report); fails if that report lacks one of the 12
+   dice/lava kernels or gives one more bytes of spill stores than
+   ``DICE_SPILL_LIMITS`` records.
 3. kernel: the deformable im2col kernel against its plain PyTorch version at
    the six distinct DCN layer shapes of PlaneRecNet-50 at batch 8, 480x640,
    in f32 and bf16; timed beside the plain version, the ``F.grid_sample``
@@ -48,7 +50,10 @@ script, so that two trees' kernels can be compared on one card.
    ``--reproductablity`` trains with): two launches on the same inputs
    must give the same bits and agree with the plain version at the same
    tolerance, the scatter's with the CPU plain version in every bit at the
-   six training shapes; each is timed beside its atomic kernel.
+   six training shapes; each is timed beside its atomic kernel. Last,
+   ``ops/image.py::reflect_pad`` under ``--reproductablity``'s switches
+   against ``F.pad(mode="reflect")`` on the CPU: values and gradients in
+   every bit.
 5. inference main path: ``PlaneRecNetRunner(PlaneRecNet_50_config)`` with
    seeded, perturbed weights answers 3 requests of 8 distinct 480x640
    frames; the im2col's launch count must rise by 13 per request.
@@ -72,9 +77,11 @@ script, so that two trees' kernels can be compared on one card.
    ``planerecnet_tpu_torch.train.main`` trains PRN-50 on it (batch 8,
    max_size 640, f32, ``--reproductablity``) for 12 steps and saves, then
    trains the same 12 steps again from scratch into another folder, then
-   resumes the first run from ``latest`` for 4 more; every step must
-   launch the im2col 26 times and the deterministic variants 13/4/4 (the
-   atomic kernels never), every loss be finite, the resume start at 12,
+   resumes the first run from ``latest`` for 4 more without the flag, as
+   users train by default; every step must launch the im2col 26 times,
+   each step with the flag the deterministic variants 13/4/4 (the atomic
+   kernels never), each resumed step the atomic kernels 13/4/4 (the
+   variants never), every loss be finite, the resume start at 12,
    the first 3 batches reach the card with their host checksums, and the
    two 12-step runs give the same losses and checkpoints whose arrays
    agree in every bit. Logged: ms/step through the CLI beside the same
@@ -98,7 +105,8 @@ script, so that two trees' kernels can be compared on one card.
    ``torch.profiler`` trace of two requests and of two training steps,
    by default and with ``--reproductablity``'s switches and variants
    (kernel tables and busy shares printed, traces and tables written to
-   DIR).
+   DIR; the traces come to more than the chip tool brings back, so give a
+   DIR outside ``chiprun_out/`` and copy the ``*_kernels.json`` tables).
 
 Exits non-zero if any phase fails, and at once where there is no card.
 The last line is ``{"ok": true, "device": {...}}``; the line before it
@@ -107,6 +115,7 @@ lists the kernels with their launches, errors and times.
 
 from __future__ import annotations
 
+import itertools
 import json
 import re
 import subprocess
@@ -255,14 +264,15 @@ def dice_spills(ptxas_log):
 def phase_build():
     from planerecnet_tpu_torch.ops import cuda_build
     t0 = time.perf_counter()
-    info = cuda_build.build()
+    # dice_lava always afresh, so that its spill gate has ptxas's report.
+    info = cuda_build.build(fresh=("dice_lava",))
     log(f"[build] {len(info)} sources in parallel, "
         f"{time.perf_counter() - t0:.1f} s wall")
     for name, rec in info.items():
         log(f"[build] {rec['path']} in {rec['seconds']:.1f} s")
         log(rec["log"].strip())
     spills = dice_spills(info["dice_lava"]["log"])
-    if info["dice_lava"]["seconds"] and len(spills) != 12:
+    if len(spills) != 12:
         raise AssertionError(f"ptxas reported {len(spills)} dice/lava "
                              f"kernels, expected 12: {spills}")
     log(f"[build] dice/lava spill stores in bytes by (pass, K, "
@@ -769,6 +779,45 @@ def time_dice(dl, d, seed, worst):
             f"{flops / ms / 1e9:.2f} TFLOP/s achieved; "
             f"max err {out[name]['max_abs_err']:.3g}")
     return out
+
+
+# (shape, channels-last) of reflect-pad inputs: decoder-like maps in both
+# layouts, the depth map of the gradient loss, a map smaller than a tile.
+REFLECT_PAD_CASES = (((8, 64, 160, 160), True), ((8, 256, 40, 40), False),
+                     ((8, 1, 640, 640), False), ((2, 3, 5, 7), False))
+
+
+def check_reflect_pad():
+    """``ops/image.py::reflect_pad`` on the card under
+    ``--reproductablity``'s switches (where ``F.pad``'s CUDA backward
+    raises) against ``F.pad(mode="reflect")`` on the CPU: values and
+    gradients in every bit (the layouts follow each device's ``F.pad``;
+    the CPU tests hold them)."""
+    from planerecnet_tpu_torch import train as train_cli
+    from planerecnet_tpu_torch.ops.image import reflect_pad
+    g = torch.Generator().manual_seed(5)
+    with train_cli.reproducible_mode(True):
+        for shape, cl in REFLECT_PAD_CASES:
+            fmt = torch.channels_last if cl else torch.contiguous_format
+            x = torch.randn(shape, generator=g).contiguous(memory_format=fmt)
+            dy = torch.randn(*shape[:2], shape[2] + 2, shape[3] + 2,
+                             generator=g)
+            a = x.cuda().requires_grad_()
+            b = x.clone().requires_grad_()
+            ya, yb = reflect_pad(a), F.pad(b, (1,) * 4, mode="reflect")
+            ya.backward(dy.cuda())
+            yb.backward(dy)
+            for what, u, v in (("values", ya, yb), ("gradient", a.grad,
+                                                     b.grad)):
+                if not torch.equal(
+                        u.detach().cpu().contiguous().view(torch.int32),
+                        v.detach().contiguous().view(torch.int32)):
+                    raise AssertionError(f"reflect_pad {what} at {shape} "
+                                         f"(channels-last {cl}) differ from "
+                                         f"F.pad's on the CPU")
+    log(f"[reflect-pad] deterministic mode on the card: values and "
+        f"gradients equal F.pad's on the CPU in every bit at "
+        f"{[s for s, _ in REFLECT_PAD_CASES]}")
 
 
 def phase_dcn_grads():
@@ -1295,12 +1344,14 @@ def host_stages(cfg, n_batches=3):
 
 
 def phase_cli(card, train_ms):
-    """The CLI path. Generates the tree, trains PRN-50 through the train
-    CLI (batch 8, max_size 640, f32, --reproductablity), resumes from
-    ``latest``, evaluates the checkpoint through the eval CLI with device
-    and with host metrics. Checks the launches of every step, the losses,
-    the resume's start, the upload of the first batches and that the
-    eval runs agree. Returns the launches of the path by kernel."""
+    """The CLI path. Generates the tree, trains PRN-50 twice through the
+    train CLI (batch 8, max_size 640, f32, --reproductablity), resumes the
+    first run from ``latest`` without the flag, as users train by default,
+    evaluates the checkpoints through the eval CLI with device and with
+    host metrics. Checks the launches of every step, the losses, the
+    resume's start, the upload of the first batches, that the two
+    reproducible runs agree in every bit and that the eval runs agree.
+    Returns the launches of the path by kernel."""
     import os
     import shutil
     import tempfile
@@ -1312,8 +1363,10 @@ def phase_cli(card, train_ms):
     from planerecnet_tpu_torch.ops import dcn
     from planerecnet_tpu_torch.runner import PlaneRecNetRunner
     from planerecnet_tpu_torch.tools import synth_scenes
-    # --reproductablity: the deterministic variants, never the atomics.
-    per_step = launches_per_step(deterministic=True)
+    # --reproductablity: the deterministic variants, never the atomics;
+    # the default (the resumed run): the atomics, never the variants.
+    det_step = launches_per_step(deterministic=True)
+    default_step = launches_per_step(deterministic=False)
     work = tempfile.mkdtemp(prefix="prn_cli_")
     cwd = os.getcwd()
     collate, train_step = datasets.collate_batch, trainer.train_step
@@ -1351,9 +1404,9 @@ def phase_cli(card, train_ms):
         datasets.collate_batch, trainer.train_step = collate_probe, step_probe
         zero_counts()
         common = ["--config", "PlaneRecNet_50_config", "--batch_size",
-                  str(BATCH), "--dtype", "float32", "--reproductablity",
-                  "--no_tensorboard", "--no_autoscale"]
-        first_args = common + ["--cfg_overrides",
+                  str(BATCH), "--dtype", "float32", "--no_tensorboard",
+                  "--no_autoscale"]
+        first_args = common + ["--reproductablity", "--cfg_overrides",
                                json.dumps({"max_iter": CLI_ITERS})]
         t0 = time.perf_counter()
         first = train_cli.main(first_args + ["--save_folder", "weights/"])
@@ -1396,9 +1449,10 @@ def phase_cli(card, train_ms):
         log(f"[cli] --reproductablity: the two {CLI_ITERS}-step runs' "
             f"checkpoints agree in every bit of all {n_arrays} arrays")
         for i, rec in enumerate(steps):
-            if rec["launches"] != per_step:
+            want = det_step if i < 2 * CLI_ITERS else default_step
+            if rec["launches"] != want:
                 raise AssertionError(f"CLI step {i}: launches "
-                                     f"{rec['launches']}, expected {per_step}")
+                                     f"{rec['launches']}, expected {want}")
         totals = torch.stack([v for rec in steps
                               for v in rec["losses"].values()])
         rep_a, rep_b = steps[:CLI_ITERS], steps[CLI_ITERS:2 * CLI_ITERS]
@@ -1416,8 +1470,10 @@ def phase_cli(card, train_ms):
                 raise AssertionError(f"batch {i} on the card {rec['sums']} "
                                      f"(all on the card: {rec['on_card']})"
                                      f", on the host {want}")
-        log(f"[cli] launches per step as expected {json.dumps(per_step)} at "
-            f"each of {len(steps)} steps; every loss finite; the first "
+        log(f"[cli] launches per step as expected: "
+            f"{json.dumps(det_step)} at each of the {2 * CLI_ITERS} steps "
+            f"with --reproductablity, {json.dumps(default_step)} at each of "
+            f"the {CLI_RESUME} resumed without it; every loss finite; the first "
             f"{len(host_sums)} batches arrived on the card with the host's "
             f"checksums of {sorted(host_sums[0])}")
         # Within an epoch (3 steps of 8 of 24 images), after the first.
@@ -1533,7 +1589,7 @@ def phase_cli(card, train_ms):
     log(f"[cli] launches over the CLI path (the three train runs with their "
         f"validation, the five eval runs) {json.dumps(launches)}")
     for k, n in launches.items():
-        if per_step[k] and n == 0:
+        if (det_step[k] or default_step[k]) and n == 0:
             raise AssertionError(f"{k} never launched on the CLI path")
     return launches
 
@@ -1745,20 +1801,46 @@ def profile_det_step(cfg, batch, out_dir):
         phase_profile_train(state, batch, out_dir, stem="step_det")
 
 
-def profile_train_steps(cfg, out_dir):
-    """``--profile-train``: phase 7's step (PRN-50, 8x640x640, seeded
-    perturbed weights, one synthetic batch) profiled by default and
-    deterministic, one state at a time."""
+PATHS_REPEATS = 10
+
+
+def time_paths(card):
+    """``--paths``: phase 5's request (PRN-50, 8x480x640, f32) and phase
+    7's default training step (8x640x640, f32, all five losses), each with
+    seeded perturbed weights, warmed up twice, then timed
+    ``PATHS_REPEATS`` times on the host's clock around a synchronize."""
     from planerecnet_tpu_torch import trainer
-    torch.backends.cudnn.allow_tf32 = True      # as in phase 7
-    batch = synthetic_batch(BATCH, TRAIN_SIZE, cfg.max_instances, seed=3)
+    from planerecnet_tpu_torch.config import PlaneRecNet_50_config
+    from planerecnet_tpu_torch.runner import PlaneRecNetRunner
+
+    def median_ms(fn):
+        for _ in range(2):
+            fn()
+        times = []
+        for _ in range(PATHS_REPEATS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(times)), [round(t, 3) for t in times]
+
+    torch.backends.cudnn.allow_tf32 = True      # as in phases 5 and 7
+    runner = PlaneRecNetRunner(PlaneRecNet_50_config, seed=0, device="cuda")
+    perturb_(runner.model, seed=1)
+    reqs = [frames(BATCH, HEIGHT, WIDTH, seed=10 + r) for r in range(3)]
+    cycle = itertools.cycle(reqs)
+    req_ms, req_all = median_ms(lambda: runner.infer(next(cycle)))
+    del runner
+    torch.cuda.empty_cache()
+    cfg = PlaneRecNet_50_config.copy(dict(lr_warmup_until=0))
     state = trainer.create_train_state(cfg, seed=0, device="cuda")
     perturb_(state.model, seed=1)
-    trainer.train_step(state, batch)
-    phase_profile_train(state, batch, out_dir)
-    del state
-    torch.cuda.empty_cache()
-    profile_det_step(cfg, batch, out_dir)
+    batch = synthetic_batch(BATCH, TRAIN_SIZE, cfg.max_instances, seed=3)
+    step_ms, step_all = median_ms(lambda: trainer.train_step(state, batch))
+    log(f"[paths] request {req_ms:.3f} ms (median of {PATHS_REPEATS}: "
+        f"{req_all}); default training step {step_ms:.3f} ms ({step_all}); "
+        f"{card}")
 
 
 def main():
@@ -1770,23 +1852,18 @@ def main():
     from planerecnet_tpu_torch.ops import dcn
 
     card = phase_device()
+    if "--paths" in sys.argv:
+        time_paths(card)
+        return 0
     phase_build()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if "--dice" in sys.argv:
         phase_dice(cases=())
         return 0
-    if "--det" in sys.argv:
-        phase_scatter(cases=True)
-        phase_dice()
-        return 0
     # The preset's schedule without its 2000-update warm-up, so that 20
     # steps on one batch show the loss falling.
     train_cfg = PlaneRecNet_50_config.copy(dict(lr_warmup_until=0))
-    if "--profile-train" in sys.argv:
-        profile_train_steps(
-            train_cfg, sys.argv[sys.argv.index("--profile-train") + 1])
-        return 0
     cases = "--dcn" not in sys.argv
     records, worst = phase_kernel(dcn)
     scatter, scatter_err, cols_err_train, cols_train = phase_scatter(cases)
@@ -1810,6 +1887,7 @@ def main():
     worst = max(worst, im2col_cases(dcn))
     dice = phase_dice()
     phase_dcn_grads()
+    check_reflect_pad()
     torch.backends.cudnn.allow_tf32 = True      # PyTorch's default
     runner, infer_launches, _ = phase_main(dcn, PlaneRecNet_50_config, card)
     phase_cpu_vs_gpu(runner, PlaneRecNet_50_config)

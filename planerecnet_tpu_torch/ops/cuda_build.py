@@ -42,15 +42,16 @@ def _target(name: str) -> Path:
     return BUILD_DIR / f"{name}_{digest[:16]}.so"
 
 
-def build(names: Iterable[str] = SOURCES) -> Dict[str, dict]:
-    """Compile the named sources that are not built yet, in parallel.
-    Returns {name: {"path", "seconds", "log"}}; ``log`` holds ptxas's
-    register and spill report of a fresh build, ``seconds`` 0.0 for a
-    library found built."""
+def build(names: Iterable[str] = SOURCES,
+          fresh: Iterable[str] = ()) -> Dict[str, dict]:
+    """Compile the named sources that are not built yet, and those named in
+    ``fresh`` in any case, in parallel. Returns {name: {"path", "seconds",
+    "log"}}; ``log`` holds ptxas's register and spill report of a fresh
+    build, ``seconds`` 0.0 for a library found built."""
     out, running = {}, {}
     for name in names:
         lib = _target(name)
-        if lib.exists():
+        if lib.exists() and name not in fresh:
             out[name] = {"path": str(lib), "seconds": 0.0, "log": ""}
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)

@@ -9,7 +9,7 @@ keeps the public (B, H, W, 3) layout and ``point_sample_grid`` returns
 from __future__ import annotations
 
 import functools
-from typing import Tuple
+from typing import List, Tuple
 
 import numpy as np
 import torch
@@ -113,35 +113,62 @@ def _reflect_sources(n: int, pad: int) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=None)
-def _reflect_folds(n: int, pad: int, device) -> Tuple[torch.Tensor, ...]:
-    """(src, idx, valid): the outputs' sources, and for each input index
-    the outputs that copy it, in increasing order: ``idx[a, i]`` the a-th
-    of them where ``valid[a, i]``."""
-    src = _reflect_sources(n, pad)
-    outs = [np.flatnonzero(src == i) for i in range(n)]
-    m = max(len(o) for o in outs)
-    idx = np.zeros((m, n), np.int64)
-    valid = np.zeros((m, n), bool)
-    for i, o in enumerate(outs):
-        idx[:len(o), i] = o
-        valid[:len(o), i] = True
-    return tuple(torch.from_numpy(a).to(device) for a in (src, idx, valid))
+def _reflect_frame(h: int, w: int, pad: int, device) -> List[Tuple]:
+    """The strips of an h x w input that more than one output copies:
+    [(dim, runs, n, idx, valid)], the rows (dim -2) and the columns (-1),
+    each a list of slices of n rows or columns in all; ``idx[s, q]`` the
+    flat index of the s-th output, in row-major order of the output, that
+    copies the q-th pixel of those strips (row-major), where ``valid[s,
+    q]``."""
+    def copies(n):
+        src = _reflect_sources(n, pad)
+        outs = [np.flatnonzero(src == i) for i in range(n)]
+        m = max(len(o) for o in outs)
+        idx = np.zeros((m, n), np.int64)
+        valid = np.zeros((m, n), bool)
+        for i, o in enumerate(outs):
+            idx[:len(o), i] = o
+            valid[:len(o), i] = True
+        return idx, valid
+
+    (ir, vr), (ic, vc) = copies(h), copies(w)
+    groups = []
+    for dim, valid in ((-2, vr), (-1, vc)):
+        runs = []
+        for i in np.flatnonzero(valid.sum(0) > 1):
+            if runs and runs[-1][1] == i:
+                runs[-1][1] = i + 1
+            else:
+                runs.append([i, i + 1])
+        if not runs:
+            continue
+        sel = np.concatenate([np.arange(a, b) for a, b in runs])
+        if dim == -2:
+            ii, jj = np.repeat(sel, w), np.tile(np.arange(w), len(sel))
+        else:
+            ii, jj = np.repeat(np.arange(h), len(sel)), np.tile(sel, h)
+        s = [(a, b) for a in range(len(ir)) for b in range(len(ic))]
+        idx = np.stack([ir[a, ii] * (w + 2 * pad) + ic[b, jj] for a, b in s])
+        ok = np.stack([vr[a, ii] & vc[b, jj] for a, b in s])
+        groups.append((dim, [slice(int(a), int(b)) for a, b in runs],
+                       len(sel), torch.from_numpy(idx).to(device),
+                       torch.from_numpy(ok).to(device)))
+    return groups
 
 
 class _ReflectPad(torch.autograd.Function):
-    """Reflection padding whose backward sums in a fixed order on every
-    device: each input pixel adds the gradients of the output pixels that
-    copy it in row-major order of the output, the order (and so the
-    rounding) of ``F.pad(mode="reflect")``'s CPU backward. Its CUDA
-    backward adds with atomics, and PyTorch's deterministic mode refuses
-    it."""
+    """``F.pad(mode="reflect")`` with a backward that sums in a fixed order
+    on every device: each input pixel adds the gradients of the output
+    pixels that copy it in row-major order of the output, the order (and
+    so the rounding) of ``F.pad``'s CPU backward. Its CUDA backward adds
+    with atomics, and PyTorch's deterministic mode refuses it. Most pixels
+    have one such output, a copy; only the strips beside the border add
+    more, the rows' and the columns' each gathered in one index_select and
+    written by slices."""
 
     @staticmethod
     def forward(ctx, x, pad):
-        h, w = x.shape[-2:]
-        sr, ir, vr = _reflect_folds(h, pad, x.device)
-        sc, ic, vc = _reflect_folds(w, pad, x.device)
-        ctx.folds = (ir, vr, ic, vc)
+        ctx.pad, ctx.hw = pad, tuple(x.shape[-2:])
         # F.pad keeps a channels-last input's layout (in its output and its
         # gradient), and the convolutions around it take other paths, with
         # other roundings, on the two layouts.
@@ -149,19 +176,31 @@ class _ReflectPad(torch.autograd.Function):
                       and not x.is_contiguous()
                       and x.is_contiguous(memory_format=torch.channels_last)
                       else torch.contiguous_format)
-        out = x.index_select(-2, sr).index_select(-1, sc)
-        return out.contiguous(memory_format=ctx.layout)
+        return F.pad(x, (pad,) * 4, mode="reflect")
 
     @staticmethod
     def backward(ctx, g):
-        ir, vr, ic, vc = ctx.folds
-        acc = 0.0   # as F.pad's gradient starts: zeros, then +=
-        for a in range(ir.shape[0]):
-            rows = g.index_select(-2, ir[a])
-            for b in range(ic.shape[0]):
-                acc = acc + torch.where(vr[a][:, None] & vc[b][None, :],
-                                        rows.index_select(-1, ic[b]), 0.0)
-        return acc.contiguous(memory_format=ctx.layout), None
+        p, (h, w) = ctx.pad, ctx.hw
+        dx = torch.empty((*g.shape[:-2], h, w), dtype=g.dtype,
+                         device=g.device, memory_format=ctx.layout)
+        # zero + the one output that copies each pixel, as F.pad starts
+        torch.add(g[..., p:p + h, p:p + w], 0.0, out=dx)
+        for dim, runs, n, idx, valid in _reflect_frame(h, w, p, g.device):
+            v = torch.where(valid, g.flatten(-2).index_select(
+                -1, idx.flatten()).unflatten(-1, tuple(idx.shape)), 0.0)
+            acc = 0.0
+            for s in range(idx.shape[0]):
+                acc = acc + v[..., s, :]
+            acc = acc.unflatten(-1, (n, w) if dim == -2 else (h, n))
+            k = 0
+            for r in runs:
+                m = r.stop - r.start
+                if dim == -2:
+                    dx[..., r, :] = acc[..., k:k + m, :]
+                else:
+                    dx[..., :, r] = acc[..., :, k:k + m]
+                k += m
+        return dx, None
 
 
 def reflect_pad(x: torch.Tensor, pad: int = 1) -> torch.Tensor:

@@ -161,9 +161,6 @@ def main(argv=None) -> Dict:
     p.add_argument("--max_recycles", default=8, type=int,
                    help="most relaunches of the train CLI after exit 75 "
                         "or -9")
-    p.add_argument("--workers", type=int, default=min(8, os.cpu_count() or 1),
-                   help="processes that render the synthetic frames (0: "
-                        "this one; the files are the same)")
     args = p.parse_args(argv)
 
     from planerecnet_tpu_torch.config import apply_overrides, set_cfg
@@ -178,8 +175,7 @@ def main(argv=None) -> Dict:
         print("Generating synthetic planar-scene dataset...", flush=True)
         generate_dataset(workdir, args.train_images, args.val_images,
                          args.eval_gen_images, h=args.size, w=args.size,
-                         min_area=int(600 * (args.size / 640) ** 2) or 60,
-                         workers=args.workers)
+                         min_area=int(600 * (args.size / 640) ** 2) or 60)
 
     overrides = {"max_iter": args.iters}
     if args.cfg_overrides:

@@ -24,26 +24,20 @@ frequency encodes depth) and Lambertian shading from a per-scene light.
 
 Usage:
   python -m planerecnet_tpu_torch.tools.synth_scenes --out OUT --train 1600 \
-      --val 200 --eval 200 [--height 480 --width 640] [--seed 0] \
-      [--workers 8]
+      --val 200 --eval 200 [--height 480 --width 640] [--seed 0]
 
 writes ``<out>/scannet/{scans/, scannet_train.json, scannet_val.json,
 scannet_eval.json}`` so the stock configs' relative ``./scannet/...`` paths
 resolve when CLIs run with ``<out>`` as cwd.
-
-With ``workers`` > 0 the frames are rendered and written by a pool of
-that many processes. The main process still draws every random number in
-order (each frame's scene, then its noise, whose generator state it hands
-to the worker), so the files are the same as one process writes.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
-import multiprocessing
 import os
 import os.path as osp
+import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -259,48 +253,13 @@ def _write_intrinsics_txt(path: str, k: np.ndarray) -> None:
         f.writelines(lines)
 
 
-def _frame(job) -> List[Dict]:
-    """Renders one frame, adds its noise (drawn from the generator state
-    it was given), writes its colour and depth PNGs; returns its planes'
-    annotations, without ids."""
-    (scene, noise_state, noise_sigma, k, h, w, i, color_dir, depth_dir,
-     min_area) = job
-    rgb, depth, ids, planes = render(scene, k, h, w)
-    noise = np.random.RandomState()
-    noise.set_state(noise_state)
-    rgb = np.clip(rgb + noise.normal(0, noise_sigma, rgb.shape), 0, 255)
-    # The array written is BGR, as the JAX package's tool writes it.
-    imwrite(osp.join(color_dir, f"{i}.png"), rgb[..., ::-1].astype(np.uint8))
-    depth_mm = np.clip(np.round(depth * 1000.0), 0, 65535).astype(np.uint16)
-    imwrite(osp.join(depth_dir, f"{i}.png"), depth_mm)
-    anns = []
-    for rid, pl in enumerate(planes):
-        mask = (ids == rid)
-        area = int(mask.sum())
-        if area < min_area:
-            continue
-        ys, xs = np.nonzero(mask)
-        x0, x1 = int(xs.min()), int(xs.max())
-        y0, y1 = int(ys.min()), int(ys.max())
-        anns.append({
-            "image_id": i, "category_id": 1,
-            "segmentation": mask_to_rle(mask.astype(np.uint8)),
-            "bbox": [x0, y0, x1 - x0 + 1, y1 - y0 + 1],
-            "area": area, "iscrowd": 0,
-            "plane_paras": [float(pl["n"][0]), float(pl["n"][1]),
-                            float(pl["n"][2]), float(pl["d"])],
-        })
-    return anns
-
-
 def generate_split(out_root: str, scene_name: str, n_images: int,
                    h: int, w: int, seed: int, min_area: int = 600,
                    n_boxes: Tuple[int, int] = (2, 5),
                    noise_sigma: float = 4.0,
-                   progress: bool = True, workers: int = 0) -> Dict:
+                   progress: bool = True) -> Dict:
     """Renders ``n_images`` scenes into ``<out_root>/scans/<scene_name>/``
-    and returns the COCO annotation dict (``workers``: see the module
-    note)."""
+    and returns the COCO annotation dict."""
     rng = np.random.RandomState(seed)
     scans = osp.join(out_root, "scans")
     color_dir = osp.join(scans, scene_name, "color")
@@ -312,34 +271,41 @@ def generate_split(out_root: str, scene_name: str, n_images: int,
     k = _intrinsics(h, w)
     _write_intrinsics_txt(osp.join(intr_dir, scene_name + ".txt"), k)
 
-    def job(i):
-        scene = build_scene(rng, n_boxes=n_boxes)
-        state = rng.get_state()
-        rng.normal(0, noise_sigma, (h, w, 3))   # the frame's noise, in order
-        return (scene, state, noise_sigma, k, h, w, i, color_dir, depth_dir,
-                min_area)
-
-    pool = (multiprocessing.get_context("spawn").Pool(workers)
-            if workers > 0 else None)
     images, annotations = [], []
-    try:
-        # Jobs go out in rounds, so that only a round's scenes are held.
-        step = 4 * workers if pool else 1
-        for lo in range(0, n_images, step):
-            jobs = [job(i) for i in range(lo, min(lo + step, n_images))]
-            done = pool.map(_frame, jobs) if pool else [_frame(jobs[0])]
-            for i, anns in zip(range(lo, n_images), done):
-                images.append({"id": i,
-                               "file_name": f"{scene_name}/color/{i}.png",
-                               "height": h, "width": w})
-                annotations.extend(anns)
-                if progress and (i + 1) % 50 == 0:
-                    print(f"  {scene_name}: {i + 1}/{n_images}", flush=True)
-    finally:
-        if pool is not None:
-            pool.close()
-            pool.join()
-    annotations = [{"id": n + 1, **a} for n, a in enumerate(annotations)]
+    ann_id = 1
+    for i in range(n_images):
+        scene = build_scene(rng, n_boxes=n_boxes)
+        rgb, depth, ids, planes = render(scene, k, h, w)
+        rgb = np.clip(rgb + rng.normal(0, noise_sigma, rgb.shape), 0, 255)
+        # The array written is BGR, as the JAX package's tool writes it.
+        imwrite(osp.join(color_dir, f"{i}.png"),
+                rgb[..., ::-1].astype(np.uint8))
+        depth_mm = np.clip(np.round(depth * 1000.0), 0, 65535).astype(
+            np.uint16)
+        imwrite(osp.join(depth_dir, f"{i}.png"), depth_mm)
+
+        images.append({"id": i, "file_name": f"{scene_name}/color/{i}.png",
+                       "height": h, "width": w})
+        for rid, pl in enumerate(planes):
+            mask = (ids == rid)
+            area = int(mask.sum())
+            if area < min_area:
+                continue
+            ys, xs = np.nonzero(mask)
+            x0, x1 = int(xs.min()), int(xs.max())
+            y0, y1 = int(ys.min()), int(ys.max())
+            annotations.append({
+                "id": ann_id, "image_id": i, "category_id": 1,
+                "segmentation": mask_to_rle(mask.astype(np.uint8)),
+                "bbox": [x0, y0, x1 - x0 + 1, y1 - y0 + 1],
+                "area": area, "iscrowd": 0,
+                "plane_paras": [float(pl["n"][0]), float(pl["n"][1]),
+                                float(pl["n"][2]), float(pl["d"])],
+            })
+            ann_id += 1
+        if progress and (i + 1) % 50 == 0:
+            print(f"  {scene_name}: {i + 1}/{n_images}", flush=True)
+
     return {"images": images, "annotations": annotations,
             "categories": [{"id": 1, "name": "plane"}]}
 
@@ -348,7 +314,7 @@ def generate_dataset(out: str, n_train: int, n_val: int, n_eval: int,
                      h: int = 480, w: int = 640, seed: int = 0,
                      min_area: int = 600,
                      n_boxes: Tuple[int, int] = (2, 5),
-                     progress: bool = True, workers: int = 0) -> str:
+                     progress: bool = True) -> str:
     """Writes the full ``<out>/scannet/...`` tree; returns its root."""
     root = osp.join(out, "scannet")
     splits = [("scannet_train.json", "scene0000_00", n_train, seed),
@@ -358,8 +324,7 @@ def generate_dataset(out: str, n_train: int, n_val: int, n_eval: int,
         if n <= 0:
             continue
         anno = generate_split(root, scene, n, h, w, s, min_area=min_area,
-                              n_boxes=n_boxes, progress=progress,
-                              workers=workers)
+                              n_boxes=n_boxes, progress=progress)
         with open(osp.join(root, json_name), "w") as f:
             json.dump(anno, f)
         if progress:
@@ -378,14 +343,12 @@ def main(argv: Optional[List[str]] = None) -> None:
     p.add_argument("--width", type=int, default=640)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--min_area", type=int, default=600)
-    p.add_argument("--workers", type=int, default=0,
-                   help="processes that render and write the frames (0: "
-                        "this one); the files are the same")
     args = p.parse_args(argv)
+    t0 = time.perf_counter()
     root = generate_dataset(args.out, args.train, args.val, args.eval,
                             h=args.height, w=args.width, seed=args.seed,
-                            min_area=args.min_area, workers=args.workers)
-    print("dataset root:", root)
+                            min_area=args.min_area)
+    print(f"dataset root: {root} ({time.perf_counter() - t0:.1f} s)")
 
 
 if __name__ == "__main__":

@@ -60,6 +60,23 @@ def test_reflect_pad_equals_f_pad_exactly(shape, channels_last):
     assert a.grad.stride() == b.grad.stride()
 
 
+@pytest.mark.parametrize("pad", [2, 3])
+@pytest.mark.parametrize("shape", [(2, 3, 5, 7), (1, 2, 4, 4), (1, 4, 9, 12)])
+def test_reflect_pad_wider_equals_f_pad_exactly(shape, pad):
+    """Wider pads: more outputs copy each pixel near the border, and on
+    small maps the strips beside the two borders meet."""
+    rng = np.random.RandomState(pad + sum(shape))
+    x = torch.from_numpy(rng.randn(*shape).astype(np.float32))
+    g = torch.from_numpy(rng.randn(shape[0], shape[1], shape[2] + 2 * pad,
+                                   shape[3] + 2 * pad).astype(np.float32))
+    a, b = x.clone().requires_grad_(), x.clone().requires_grad_()
+    ya, yb = reflect_pad(a, pad), F.pad(b, (pad,) * 4, mode="reflect")
+    np.testing.assert_array_equal(bits(ya), bits(yb))
+    ya.backward(g)
+    yb.backward(g)
+    np.testing.assert_array_equal(bits(a.grad), bits(b.grad))
+
+
 @pytest.mark.parametrize("shape", [(2, 3, 5, 7), (1, 8, 40, 40)])
 def test_reflect_pad_matches_jnp_pad(shape):
     rng = np.random.RandomState(7)
