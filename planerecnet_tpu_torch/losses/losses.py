@@ -241,7 +241,8 @@ def _lava_valid_mask(cfg: PlaneRecNetConfig, gt_depths: torch.Tensor):
 def compute_losses(cfg: PlaneRecNetConfig, preds: Dict, batch: Dict,
                    vnl_indices: Optional[Dict[str, torch.Tensor]] = None,
                    generator: Optional[torch.Generator] = None,
-                   deterministic: bool = False) -> Dict[str, torch.Tensor]:
+                   deterministic: bool = False,
+                   mesh=None) -> Dict[str, torch.Tensor]:
     """Weighted loss dict: ins, cat, dpt [, pln] [, lav].
 
     ``preds`` is the model's raw-pred dict, ``batch`` the dense GT batch.
@@ -250,6 +251,14 @@ def compute_losses(cfg: PlaneRecNetConfig, preds: Dict, batch: Dict,
     the first ``vnl_max_planes`` valid planes) are given.
     ``deterministic`` sends the fused dice/lava loss to its kernels'
     fixed-order variants.
+
+    With a ``mesh`` (``parallel/mesh.py``), ``batch`` is this rank's rows
+    of the global batch, and each loss is this rank's
+    share of the global batch's: its sums over the global normalisers
+    (the dice and focal counts, the lava images, the batch size), so that
+    the losses, and their gradients, summed over the ranks are the
+    global batch's. The VNL triplets are drawn for the global batch and
+    this rank's rows kept.
     """
     cate_preds: List[torch.Tensor] = preds["cate_preds"]
     kernel_preds: List[torch.Tensor] = preds["kernel_preds"]
@@ -302,6 +311,14 @@ def compute_losses(cfg: PlaneRecNetConfig, preds: Dict, batch: Dict,
             lava_dot = lava_dot + (dots * pvalid).sum(1)
             lava_cnt = lava_cnt + pvalid.sum(1)
         num_ins = num_ins + gt["ins_inds"][lvl].float().sum()
+    if need_lava:
+        contrib = (lava_cnt > 0) & (grad_sum > 0)
+        n_contrib = contrib.float().sum()
+    world, first = (1, 0) if mesh is None else (mesh.size, mesh.rank * b)
+    if world > 1:
+        counts = mesh.all_sum(torch.stack(
+            [dice_cnt, num_ins, n_contrib if need_lava else dice_cnt]))
+        dice_cnt, num_ins, n_contrib = counts.unbind()
     losses["ins"] = cfg.dice_weight * dice_sum / dice_cnt.clamp(min=1.0)
 
     flat_logits = torch.cat([cp.float().reshape(b, -1, cfg.num_classes)
@@ -320,7 +337,7 @@ def compute_losses(cfg: PlaneRecNetConfig, preds: Dict, batch: Dict,
                                ).permute(0, 2, 3, 1)        # (B, H, W, 1)
     min_depth = cfg.dataset.min_depth or 1e-3
     losses["dpt"] = cfg.depth_weight * rmse_log_loss(
-        depth_up, gt_depths, gt_depths > min_depth).mean()
+        depth_up, gt_depths, gt_depths > min_depth).sum() / (b * world)
 
     if cfg.use_plane_loss:
         # The first vnl_max_planes VALID planes; the non-planar region
@@ -338,16 +355,15 @@ def compute_losses(cfg: PlaneRecNetConfig, preds: Dict, batch: Dict,
             full_np = ~(masks_bool & gt_valid[:, :, None, None]).any(1)
             vnl_indices = sample_vnl_indices(generator, vnl_masks,
                                              full_np.reshape(b, -1),
-                                             cfg.vnl_samples)
+                                             cfg.vnl_samples,
+                                             rows=(first, b * world))
         pln = vnl_loss_from_indices(depth_up[..., 0], gt_depths[..., 0],
                                     batch["k_matrix"].float(), vnl_normals,
                                     vnl_valid, vnl_indices)
-        losses["pln"] = cfg.pln_weight * pln.mean()
+        losses["pln"] = cfg.pln_weight * pln.sum() / (b * world)
 
     if need_lava:
-        contrib = (lava_cnt > 0) & (grad_sum > 0)
         per_img = lava_dot / (grad_sum * lava_cnt).clamp(min=1e-12)
-        n_contrib = contrib.float().sum()
         lava = torch.where(contrib, per_img, 0.0).sum() / n_contrib.clamp(
             min=1.0)
         losses["lav"] = cfg.lava_weight * lava

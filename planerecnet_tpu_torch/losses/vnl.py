@@ -22,7 +22,7 @@ triplet; the intended z-clamp of predicted points at depth 0.
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -34,14 +34,21 @@ DELTA_DIFF_NONPLANAR = 0.1
 
 
 def _sample_mask_indices(generator: Optional[torch.Generator],
-                         masks_flat: torch.Tensor, num: int):
+                         masks_flat: torch.Tensor, num: int,
+                         rows: Optional[Tuple[int, int]] = None):
     """Uniform flat pixel ids of each row's set pixels, with replacement.
-    masks_flat (..., HW) bool -> (ids (..., num) int64, ok (...) bool);
-    ok is False for an empty mask (its ids are then HW - 1)."""
+    masks_flat (B, ..., HW) bool -> (ids (B, ..., num) int64, ok (B, ...)
+    bool); ok is False for an empty mask (its ids are then HW - 1). With
+    ``rows = (first, total)`` the B images are rows first..first+B-1 of a
+    batch of ``total``: the draws are the whole batch's, and these rows'
+    are kept, so that every split of a batch draws what the whole does."""
     cdf = torch.cumsum(masks_flat.long(), dim=-1)
     total = cdf[..., -1:]
-    r = torch.rand(masks_flat.shape[:-1] + (num,), generator=generator,
-                   dtype=torch.float64, device=masks_flat.device)
+    b = masks_flat.shape[0]
+    first, n_rows = rows or (0, b)
+    r = torch.rand((n_rows,) + masks_flat.shape[1:-1] + (num,),
+                   generator=generator, dtype=torch.float64,
+                   device=masks_flat.device)[first:first + b]
     u = torch.minimum((r * total).floor().long() + 1, total.clamp(min=1))
     idx = torch.searchsorted(cdf.contiguous(), u.contiguous(), side="left")
     return idx.clamp(max=masks_flat.shape[-1] - 1), total[..., 0] > 0
@@ -49,18 +56,21 @@ def _sample_mask_indices(generator: Optional[torch.Generator],
 
 def sample_vnl_indices(generator: Optional[torch.Generator],
                        plane_masks: torch.Tensor, nonplanar: torch.Tensor,
-                       num_samples: int) -> Dict[str, torch.Tensor]:
+                       num_samples: int,
+                       rows: Optional[Tuple[int, int]] = None
+                       ) -> Dict[str, torch.Tensor]:
     """Triplet pixel ids for ``vnl_loss_from_indices``.
 
     plane_masks (B, NP, H, W) bool; nonplanar (B, H*W) bool. Returns
     ``plane_idx`` (B, NP, 3, M), ``plane_ok`` (B, NP), ``np_idx``
-    (B, 3, M), ``np_ok`` (B,), M = num_samples.
+    (B, 3, M), ``np_ok`` (B,), M = num_samples. ``rows`` as
+    ``_sample_mask_indices`` takes it (a data-parallel rank's rows).
     """
     b, n = plane_masks.shape[:2]
     idx, ok = _sample_mask_indices(generator, plane_masks.reshape(b, n, -1),
-                                   3 * num_samples)
+                                   3 * num_samples, rows)
     np_idx, np_ok = _sample_mask_indices(generator, nonplanar,
-                                         3 * num_samples)
+                                         3 * num_samples, rows)
     return {"plane_idx": idx.reshape(b, n, 3, num_samples), "plane_ok": ok,
             "np_idx": np_idx.reshape(b, 3, num_samples), "np_ok": np_ok}
 

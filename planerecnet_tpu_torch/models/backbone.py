@@ -17,6 +17,7 @@ import torch
 from torch import nn
 
 from planerecnet_tpu_torch.config import BackboneConfig
+from planerecnet_tpu_torch.models.layers import BatchNorm2d
 from planerecnet_tpu_torch.ops.dcn import deform_conv2d
 
 
@@ -80,7 +81,7 @@ class Bottleneck(nn.Module):
         super().__init__()
         out = planes * self.expansion
         self.conv1 = nn.Conv2d(inplanes, planes, 1, bias=False)
-        self.bn1 = nn.BatchNorm2d(planes)
+        self.bn1 = BatchNorm2d(planes)
         if use_dcn:
             self.conv2 = DeformableConv2d(planes, planes, 3, stride=stride,
                                           padding=dilation, dtype=dtype)
@@ -88,13 +89,13 @@ class Bottleneck(nn.Module):
             self.conv2 = nn.Conv2d(planes, planes, 3, stride=stride,
                                    padding=dilation, dilation=dilation,
                                    bias=False)
-        self.bn2 = nn.BatchNorm2d(planes)
+        self.bn2 = BatchNorm2d(planes)
         self.conv3 = nn.Conv2d(planes, out, 1, bias=False)
-        self.bn3 = nn.BatchNorm2d(out)
+        self.bn3 = BatchNorm2d(out)
         self.relu = nn.ReLU()
         self.downsample = (nn.Sequential(
             nn.Conv2d(inplanes, out, 1, stride=stride, bias=False),
-            nn.BatchNorm2d(out)) if has_downsample else None)
+            BatchNorm2d(out)) if has_downsample else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         out = self.relu(self.bn1(self.conv1(x)))
@@ -142,7 +143,7 @@ class ResNetBackbone(nn.Module):
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
-        self.bn1 = nn.BatchNorm2d(64)
+        self.bn1 = BatchNorm2d(64)
         self.relu = nn.ReLU()
         self.maxpool = nn.MaxPool2d(3, stride=2, padding=1)
         self.layers = nn.ModuleList()

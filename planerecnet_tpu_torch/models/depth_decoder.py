@@ -68,4 +68,6 @@ class DepthDecoderFPN(nn.Module):
         x = self.deconv3(torch.cat([l3, x], dim=1))
         l4 = self.conv4(self.latlayer4(c2))
         x = self.deconv4(torch.cat([l4, x], dim=1))
-        return F.softplus(self.depth_pred(x))
+        # f32 in the bf16 mode too (the JAX package's is bf16), as
+        # torch's autocast takes it on the card.
+        return F.softplus(self.depth_pred(x).float())

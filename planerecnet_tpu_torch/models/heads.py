@@ -15,6 +15,7 @@ from torch import nn
 
 from planerecnet_tpu_torch.config import SOLOv2Config
 from planerecnet_tpu_torch.models.backbone import DeformableConv2d
+from planerecnet_tpu_torch.models.layers import GroupNorm
 from planerecnet_tpu_torch.ops.image import point_sample_grid, resize_bilinear
 
 
@@ -31,8 +32,8 @@ def _with_coords(x: torch.Tensor) -> torch.Tensor:
     return torch.cat([x, coord], dim=1)
 
 
-def _gn(c: int) -> nn.GroupNorm:
-    return nn.GroupNorm(32, c, eps=1e-5)
+def _gn(c: int) -> GroupNorm:
+    return GroupNorm(32, c, eps=1e-5)
 
 
 class SOLOv2InsHead(nn.Module):

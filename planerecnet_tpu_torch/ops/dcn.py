@@ -138,7 +138,8 @@ def deform_im2col(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
     A CPU ``x`` goes to ``deform_im2col_plain``. A CUDA ``x`` goes to the
     kernel, which takes contiguous f32 or bf16 ``x`` with contiguous f32
     ``offset`` and ``mask`` on the same card, and raises on anything else.
-    ``deform_im2col.launches`` counts the kernel's launches.
+    ``deform_im2col.launches`` counts the kernel's launches,
+    ``deform_im2col.bf16_launches`` those of them on bf16 ``x``.
     """
     if x.device.type == "cpu":
         return deform_im2col_plain(x, offset, mask, stride=stride,
@@ -173,10 +174,12 @@ def deform_im2col(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
                  padding, stream)
     cuda_build.check_launch(err, "dcn_im2col")
     deform_im2col.launches += 1
+    deform_im2col.bf16_launches += x.dtype == torch.bfloat16
     return cols
 
 
 deform_im2col.launches = 0
+deform_im2col.bf16_launches = 0
 
 
 def _dcn_backward(x, offset, mask, weight, has_bias, dout, stride, padding,

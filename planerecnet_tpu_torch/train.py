@@ -10,8 +10,17 @@ than 8 rescales lr, max_iter and lr_steps. A torchvision ImageNet ResNet
 ``.pth`` at ``<backbone_folder>/<backbone path>`` initialises the backbone
 (``utils/torch_convert.py``); with TensorBoard, seg/depth panels of two
 valid images are logged every 5000 iterations. Runs on ``cuda`` unless
-``--device cpu`` is passed. Data parallelism (``--n_devices > 1``,
-``--multihost``) is not ported yet.
+``--device cpu`` is passed.
+
+Data parallelism: ``--multihost`` joins the process group that
+``tools/run_multihost.py`` launches (``parallel.spmd.
+initialize_distributed``), one rank a card (NCCL) or on the CPU (gloo).
+``--batch_size`` is the global batch; each rank loads its rows of it
+(``BatchIterator`` shards) and ``trainer.train_step`` takes the global
+batch's step. ``--n_devices``, where given, must be the number of ranks.
+A per-rank batch below 6 freezes BatchNorm; from 6 BatchNorm trains on
+the global batch's statistics. Rank 0 alone prints progress and writes
+checkpoints and TensorBoard; the seed is rank 0's.
 
 ``--reproductablity`` seeds everything from 42 and, before the first CUDA
 call, pins the run to deterministic algorithms (``reproducible_mode``):
@@ -40,6 +49,9 @@ from planerecnet_tpu_torch.config import (apply_overrides, set_cfg,
 from planerecnet_tpu_torch.data import (BaseTransform, BatchIterator,
                                         PrefetchIterator, SSDAugmentation,
                                         build_dataset)
+from planerecnet_tpu_torch.ops import launch_counts
+from planerecnet_tpu_torch.parallel.mesh import Mesh, make_mesh, shard_batch
+from planerecnet_tpu_torch.parallel.spmd import initialize_distributed
 from planerecnet_tpu_torch.runner import PlaneRecNetRunner, resolve_device
 from planerecnet_tpu_torch.utils import MovingAverage, SavePath, torch_convert
 from planerecnet_tpu_torch.utils.checkpoint import (load_train_state,
@@ -53,8 +65,6 @@ LOG_EVERY = 50
 # host-RSS guard saved the state and exited because host memory crossed
 # --max_host_rss_gb.
 RECYCLE_EXIT_CODE = 75
-NOT_PORTED = ("data-parallel training is not ported yet (ROADMAP Queue 1 "
-              "item 8, DDP); run on one card")
 
 
 def host_rss_gb() -> float:
@@ -188,13 +198,22 @@ def parse_args(argv=None):
                         help="5x learning rate for the backbone, 2x for the "
                              "depth decoder.")
     parser.add_argument("--n_devices", default=None, type=int,
-                        help="Cards; only 1 is ported.")
+                        help="Data-parallel ranks (default: the process "
+                             "group's; 1 without --multihost). Must equal "
+                             "the number of ranks launched.")
     parser.add_argument("--dtype", default=None,
                         choices=[None, "float32", "bfloat16"],
                         help="Training compute dtype (default: the config's, "
                              "'auto' = float32).")
     parser.add_argument("--multihost", action="store_true",
-                        help="Not ported (data parallelism across hosts).")
+                        help="Join the data-parallel process group: rank, "
+                             "world size and rank 0's address from "
+                             "PRN_PROCESS_ID / PRN_NUM_PROCESSES / "
+                             "PRN_COORDINATOR_ADDRESS, the backend from "
+                             "PRN_BACKEND (default NCCL on cuda, gloo on "
+                             "the CPU), PRN_PLATFORM=cpu for the CPU; "
+                             "tools/run_multihost.py sets them. Each rank "
+                             "loads only its rows of every global batch.")
     parser.add_argument("--max_host_rss_gb", default=0.0, type=float,
                         help="When >0 and the process RSS crosses this many "
                              "GiB, save the state and exit with code 75 so "
@@ -217,14 +236,21 @@ def main(argv=None) -> Dict:
     the loader's mean occupancy, the last checkpoint written
     (``checkpoint``) and the losses of the last drained step."""
     args = parse_args(argv)
-    if args.multihost or (args.n_devices or 1) > 1:
-        raise NotImplementedError(NOT_PORTED)
     with reproducible_mode(args.reproductablity):
-        return _train(args)
+        if not args.multihost:
+            return _train(args, make_mesh(resolve_device(args.device),
+                                          args.n_devices))
+        mesh = initialize_distributed(args.device)
+        try:
+            make_mesh(mesh.device, args.n_devices)   # checks --n_devices
+            return _train(args, mesh)
+        finally:
+            torch.distributed.destroy_process_group()
 
 
-def _train(args) -> Dict:
-    device = resolve_device(args.device)
+def _train(args, mesh: Mesh) -> Dict:
+    device = mesh.device
+    is_main = mesh.rank == 0
 
     cfg = set_cfg(args.config)
     if args.dataset is not None:
@@ -248,13 +274,19 @@ def _train(args) -> Dict:
         cfg = cfg.copy(dict(lr=args.lr))
     if args.gamma is not None:
         cfg = cfg.copy(dict(gamma=args.gamma))
-    if args.batch_size < 6:
+    if shard_batch(mesh, args.batch_size) < 6:
         print("Per-device batch size is less than the recommended limit for "
               "batch norm. Disabling batch norm.")
         cfg = cfg.copy(dict(freeze_bn=True))
 
     os.makedirs(args.save_folder, exist_ok=True)
     seed = 42 if args.reproductablity else int(time.time()) % (2 ** 31)
+    if mesh.size > 1 and not args.reproductablity:
+        # Every rank needs rank 0's seed: it sets the shared batch order,
+        # the augmentation and the initial weights.
+        seed_t = torch.tensor([seed], dtype=torch.int64, device=device)
+        torch.distributed.broadcast(seed_t, src=0)
+        seed = int(seed_t)
     if args.reproductablity:
         np.random.seed(seed)
         random.seed(seed)
@@ -263,11 +295,14 @@ def _train(args) -> Dict:
     dataset = build_dataset(cfg, "train", transform=SSDAugmentation(
         cfg, rng=np.random.RandomState(seed)))
     loader = PrefetchIterator(
-        BatchIterator(cfg, dataset, args.batch_size, seed=seed),
+        BatchIterator(cfg, dataset, args.batch_size, seed=seed,
+                      shard_index=mesh.rank, num_shards=mesh.size),
         buffer_size=max(args.num_workers, 1), to_device=True, device=device)
     state = trainer.create_train_state(cfg, seed=seed, device=device,
                                        per_module_lr=args.per_module_lr,
-                                       deterministic=args.reproductablity)
+                                       deterministic=args.reproductablity,
+                                       # one rank of --multihost too
+                                       mesh=mesh if args.multihost else None)
 
     start_iter = max(args.start_iter, 0)
     if args.resume is not None:
@@ -290,7 +325,7 @@ def _train(args) -> Dict:
                     torch_convert.load_pth(backbone_path), state.model))
 
     writer = None
-    if not args.no_tensorboard:
+    if not args.no_tensorboard and is_main:
         try:
             from torch.utils.tensorboard import SummaryWriter
             begin = datetime.datetime.now().strftime("%d%m%Y%H%M%S")
@@ -344,7 +379,9 @@ def _train(args) -> Dict:
         stop_requested["flag"] = True
     prev_handler = signal.signal(signal.SIGINT, _on_sigint)
 
-    print("Begin training!\n")
+    if is_main:
+        print("Begin training!\n")
+    debug_batch_sum = os.environ.get("PRN_DEBUG_BATCH_SUM") == "1"
     epoch = 0  # a pre-loop ctrl-C must still reach the interrupt handler
     try:
         for epoch in range(num_epochs):
@@ -369,6 +406,14 @@ def _train(args) -> Dict:
                     for avg in loss_avgs.values():
                         avg.reset()
 
+                if debug_batch_sum:
+                    # Each rank's share of the batch (disjoint shards),
+                    # the wall clock and the kernels' launches so far.
+                    image = torch.as_tensor(batch["image"])
+                    print(f"[p{mesh.rank}] iter {iteration} t "
+                          f"{time.time():.6f} launches "
+                          f"{json.dumps(launch_counts())} batch_sum "
+                          f"{float(image.double().sum()):.2f}", flush=True)
                 pending_losses.append(trainer.train_step(state, batch))
                 iteration += 1
 
@@ -382,7 +427,7 @@ def _train(args) -> Dict:
                     for k, v in drained.items():
                         writer.add_scalar(f"loss/{k}", v, iteration)
 
-                if iteration % 100 == 0:
+                if iteration % 100 == 0 and is_main:
                     eta = (cfg.max_iter - iteration) * time_avg.get_avg()
                     eta_str = str(int(eta // 3600)) + "h" + str(
                         int(eta % 3600 // 60)) + "m"
@@ -397,7 +442,8 @@ def _train(args) -> Dict:
                 if writer is not None and iteration % 5000 == 0:
                     log_visual_example(cfg, state, writer, iteration)
 
-                if iteration % args.save_interval == 0 and iteration > 0:
+                if iteration % args.save_interval == 0 and iteration > 0 \
+                        and is_main:
                     if args.keep_latest and latest_saved is not None:
                         if args.keep_latest_interval <= 0 or \
                                 iteration % args.keep_latest_interval \
@@ -410,22 +456,32 @@ def _train(args) -> Dict:
                     latest_saved = save_train_state(
                         save_path(epoch, iteration), state)
 
-                # Host-RSS guard (see RECYCLE_EXIT_CODE).
+                # Host-RSS guard (see RECYCLE_EXIT_CODE). With several
+                # ranks they decide together, on the largest RSS, every
+                # LOG_EVERY iterations: one rank leaving alone would
+                # strand the others in the next collective.
                 if args.max_host_rss_gb > 0:
-                    rss = host_rss_gb()
+                    rss = 0.0
+                    if mesh.size == 1:
+                        rss = host_rss_gb()
+                    elif iteration % LOG_EVERY == 0:
+                        rss = mesh.all_max(host_rss_gb())
                     if rss > args.max_host_rss_gb:
                         drain_losses()
                         signal.signal(signal.SIGINT, prev_handler)
-                        print(f"Host RSS {rss:.1f} GiB > cap "
-                              f"{args.max_host_rss_gb:.1f} GiB: saving "
-                              f"state, iter: {iteration}; exiting "
-                              f"{RECYCLE_EXIT_CODE} for recycle", flush=True)
-                        save_train_state(save_path(epoch, iteration), state)
+                        if is_main:
+                            print(f"Host RSS {rss:.1f} GiB > cap "
+                                  f"{args.max_host_rss_gb:.1f} GiB: saving "
+                                  f"state, iter: {iteration}; exiting "
+                                  f"{RECYCLE_EXIT_CODE} for recycle",
+                                  flush=True)
+                            save_train_state(save_path(epoch, iteration),
+                                             state)
                         raise SystemExit(RECYCLE_EXIT_CODE)
 
             last_losses = drain_losses() or last_losses
             trunc = loader.iterable.truncation_stats
-            if any(trunc.values()):
+            if any(trunc.values()) and is_main:   # rank 0's shard's
                 parts = ", ".join(f"{k}: {v}" for k, v in trunc.items() if v)
                 print(f"WARNING: GT truncated this epoch ({parts}) — "
                       f"raise cfg.max_instances / cfg.vnl_max_planes if "
@@ -433,11 +489,11 @@ def _train(args) -> Dict:
                 if writer is not None:
                     for k, v in trunc.items():
                         writer.add_scalar(f"gt_truncation/{k}", v, iteration)
-                trunc.clear()
+            trunc.clear()
             if iteration == cfg.max_iter:
                 break
 
-            if args.validation_epoch > 0 and \
+            if args.validation_epoch > 0 and is_main and \
                     (epoch + 1) % args.validation_epoch == 0:
                 compute_validation_metrics(cfg, state, args.validation_size)
     except KeyboardInterrupt:
@@ -445,7 +501,7 @@ def _train(args) -> Dict:
         result = {"start_iter": start_iter, "iteration": iteration,
                   "mean_occupancy": loader.mean_occupancy(),
                   "checkpoint": None, "losses": last_losses}
-        if args.interrupt:
+        if args.interrupt and is_main:
             print("Stopping early. Saving network...")
             SavePath.remove_interrupt(args.save_folder)
             result["checkpoint"] = save_train_state(
@@ -453,8 +509,10 @@ def _train(args) -> Dict:
         return result
 
     signal.signal(signal.SIGINT, prev_handler)
-    final = save_train_state(save_path(epoch, iteration), state)
-    print("Training complete.")
+    final = None
+    if is_main:
+        final = save_train_state(save_path(epoch, iteration), state)
+        print("Training complete.")
     return {"start_iter": start_iter, "iteration": iteration,
             "mean_occupancy": loader.mean_occupancy(), "checkpoint": final,
             "losses": last_losses}

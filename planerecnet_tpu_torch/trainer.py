@@ -21,6 +21,16 @@ and the depth decoder 2x the learning rate.
 and dice/lava kernels to their variants that sum in a fixed order, so
 that a step on the same state and batch gives the same bits (with
 PyTorch's own deterministic mode, which the train CLI sets).
+
+``create_train_state(mesh=...)`` (``parallel/``) makes ``train_step``
+the data-parallel step, the
+counterpart of the JAX package's ``jit_train_step(cfg, mesh)``: each rank
+steps its rows of the global batch, and the step is the global batch's.
+The model runs under ``DistributedDataParallel`` with the gradients
+summed over the ranks, each rank's losses are its share of the global
+losses (``compute_losses(mesh=...)``), BatchNorm trains on the global
+batch's statistics (``parallel.spmd.SyncBatchNorm2d``) unless frozen,
+and the losses returned, hence the non-finite skip, are the global ones.
 """
 
 from __future__ import annotations
@@ -36,6 +46,8 @@ from planerecnet_tpu_torch.config import PlaneRecNetConfig
 from planerecnet_tpu_torch.losses import compute_losses
 from planerecnet_tpu_torch.models.planerecnet import PlaneRecNet
 from planerecnet_tpu_torch.ops.image import fast_base_transform
+from planerecnet_tpu_torch.parallel.mesh import Mesh, replicated
+from planerecnet_tpu_torch.parallel.spmd import convert_sync_batchnorm
 from planerecnet_tpu_torch.runner import resolve_device
 from planerecnet_tpu_torch.utils.weights import (flatten_variables,
                                                  from_jax_variables)
@@ -81,6 +93,8 @@ class TrainState:
     step: int = 0        # every step taken
     updates: int = 0     # the steps whose update was applied
     deterministic: bool = False   # the kernels' fixed-order variants
+    mesh: Optional[Mesh] = None   # the data-parallel ranks
+    replica: Optional[nn.Module] = None   # ``model`` under DDP, with mesh
 
     @property
     def device(self) -> torch.device:
@@ -95,20 +109,27 @@ class TrainState:
 def create_train_state(cfg: PlaneRecNetConfig,
                        variables: Optional[Mapping] = None, seed: int = 0,
                        device="cuda", per_module_lr: bool = False,
-                       deterministic: bool = False) -> TrainState:
+                       deterministic: bool = False,
+                       mesh: Optional[Mesh] = None) -> TrainState:
     """A model in train mode (fresh weights from ``seed``, or the JAX
     package's ``variables``, nested or flat), its optimizer and schedule.
-    ``deterministic`` selects the kernels' fixed-order variants."""
-    device = resolve_device(device)
+    ``deterministic`` selects the kernels' fixed-order variants. A
+    ``mesh`` makes the state data-parallel on ``mesh.device`` (module
+    docstring), one rank included."""
+    device = resolve_device(device if mesh is None else mesh.device)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
         model = PlaneRecNet(cfg)
     if variables is not None:
         model.load_state_dict(
             from_jax_variables(flatten_variables(variables), model))
+    if mesh is not None and not cfg.freeze_bn:
+        convert_sync_batchnorm(model)
     model = model.to(device).train().set_deterministic(deterministic)
+    replica = None if mesh is None else replicated(model, mesh)
     return TrainState(cfg, model, make_optimizer(model, per_module_lr),
-                      lr_schedule(cfg), seed=seed, deterministic=deterministic)
+                      lr_schedule(cfg), seed=seed, deterministic=deterministic,
+                      mesh=mesh, replica=replica)
 
 
 def densify_sparse_masks(cfg: PlaneRecNetConfig, batch: Dict) -> Dict:
@@ -172,18 +193,24 @@ def grad_step(state: TrainState, batch: Mapping,
               vnl_indices: Optional[Dict[str, torch.Tensor]] = None):
     """Forward, joint loss and backward; the gradients are left in the
     parameters' ``.grad``. Returns (the detached losses with ``total``, the
-    BatchNorm running statistics as they were before the forward)."""
+    BatchNorm running statistics as they were before the forward). With
+    a mesh the gradients and the losses are the global batch's."""
     batch = unpack_wire_batch(state.cfg, batch, state.device)
     saved = [buf.clone() for buf in _bn_buffers(state.model)]
     state.optimizer.zero_grad(set_to_none=True)
-    preds = state.model(batch["image"])
+    net = state.model if state.replica is None else state.replica
+    preds = net(batch["image"])
     losses = compute_losses(state.cfg, preds, batch, vnl_indices=vnl_indices,
                             generator=state.generator(),
-                            deterministic=state.deterministic)
+                            deterministic=state.deterministic,
+                            mesh=state.mesh)
     total = sum(losses.values())
     total.backward()
-    losses = {k: v.detach() for k, v in losses.items()}
-    return dict(losses, total=total.detach()), saved
+    losses = dict(losses, total=total)
+    if state.mesh is not None:
+        summed = state.mesh.all_sum(torch.stack(list(losses.values())))
+        return dict(zip(losses, summed.unbind())), saved
+    return {k: v.detach() for k, v in losses.items()}, saved
 
 
 def apply_grads(state: TrainState, total: torch.Tensor,

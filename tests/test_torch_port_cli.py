@@ -5,7 +5,7 @@ written by the port's ``synth_scenes``): training saves, resumes from
 ``latest`` and from ``interrupt`` with the start iteration parsed from the
 file name, and exits 75 under the host-RSS guard; a batch of 2 rescales
 the schedule and freezes BatchNorm as the JAX CLI does; data parallelism
-and a backbone ``.pth`` raise. The eval CLI's threshold flags set the
+without the launcher's ranks and an unreadable backbone ``.pth`` raise. The eval CLI's threshold flags set the
 fields the JAX CLI's set. The eval CLI on the trained checkpoint: device
 metrics equal host metrics, batch 2 gives batch 1's tables (depth within
 1e-5: the CPU convolutions sum a batch of one in another order), and the
@@ -134,11 +134,15 @@ def test_train_host_rss_guard_exits_75(workdir, monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("extra,match", [
-    (["--n_devices", "2"], "Queue 1 item 8"),
-    (["--multihost"], "Queue 1 item 8"),
-])
-def test_train_refuses_what_is_not_ported(extra, match):
-    with pytest.raises(NotImplementedError, match=match):
+    (["--n_devices", "2"], "process group has 1"),
+    (["--multihost"], "PRN_COORDINATOR_ADDRESS"),
+], ids=["extra0-Queue 1 item 8", "extra1-Queue 1 item 8"])
+def test_train_refuses_what_is_not_ported(extra, match, monkeypatch):
+    """Data parallelism is ported (``tests/test_torch_port_parallel.py``);
+    without the launcher's ranks, ``--n_devices 2`` (one rank) and
+    ``--multihost`` (no rank 0 to join) raise, naming the launcher."""
+    monkeypatch.delenv("PRN_COORDINATOR_ADDRESS", raising=False)
+    with pytest.raises(ValueError, match=match + ".*run_multihost"):
         _train(extra)
 
 
