@@ -4,6 +4,7 @@
     python3 chip_smoke.py --dice
     python3 chip_smoke.py --dcn
     python3 chip_smoke.py --paths
+    python3 chip_smoke.py --spatial
 
 ``--dice`` runs phases 1, 2 and the timed dice/lava shapes of 4 alone and
 prints no result line; ``--dcn`` runs phases 1, 2, the im2col's serving
@@ -15,6 +16,9 @@ be compared on one card. ``--paths`` times phase 5's request and phase 7's
 default training step alone (no build phase, no launch checks: it calls
 only ``PlaneRecNetRunner.infer`` and ``trainer.train_step``, so it runs on
 the trees of earlier slices too) and prints no result line.
+``--spatial`` runs phases 1, 2, the spatial windows of 4, 15 and 16
+alone and prints no result line. ``--spatial_rank DIR`` is one rank of
+phases 15-16, which launch it.
 
 1. device: the card's name and power limit (nvidia-smi).
 2. build: one ``nvcc`` per source in ``planerecnet_tpu_torch/csrc/``
@@ -53,7 +57,11 @@ the trees of earlier slices too) and prints no result line.
    six training shapes; each is timed beside its atomic kernel. Last,
    ``ops/image.py::reflect_pad`` under ``--reproductablity``'s switches
    against ``F.pad(mode="reflect")`` on the CPU: values and gradients in
-   every bit.
+   every bit. Then the im2col (f32 and bf16) and the scatter (atomic and
+   deterministic) at the windows that phases 15-16 give them on 2 ranks:
+   each rank's output rows of every DCN layer whose output splits, from
+   its first row ``row0``, over the whole input, at the requests' and the
+   step's shapes (``spatial_window_cases``).
 5. inference main path: ``PlaneRecNetRunner(PlaneRecNet_50_config)`` with
    seeded, perturbed weights answers 3 requests of 8 distinct 480x640
    frames; the im2col's launch count must rise by 13 per request.
@@ -130,8 +138,30 @@ the trees of earlier slices too) and prints no result line.
    sharing one card (no scaling figure).
 14. ``tools/check_dataset.py`` on phase 9's valid split on the card: a
    finite point-to-plane error for every frame.
+15. the spatial mesh axis, serving: ``tools/run_multihost.py`` launches 2
+   ranks of this script (``--spatial_rank``) over gloo on the one card,
+   a (1, 2) data x spatial mesh: PRN-50 with phase 5's weights answers 3
+   requests of 1x640x640 and of 8x480x640 (C5 gathered) through
+   ``parallel.spmd.jit_forward(spatial=True)``, then one rank of the same
+   program (a (1, 1) mesh) the same requests, TF32 off in both: every
+   output of the split within 1e-4 of its scale of the unsplit rank's, 13
+   im2col launches a request on every rank; request times and each
+   rank's peak memory beside the unsplit rank's (two ranks sharing one
+   card: no latency or scaling figure).
+16. the spatial mesh axis, training, in the same launches: 2 steps of
+   ``trainer.train_step`` on the (1, 2) mesh, PRN-50, phase 7's batch at
+   6x640x640 (BatchNorm synced), against the one rank, which also takes
+   them with cuDNN off (phase 13's yardstick): the losses of step 1
+   within rel 2e-4 / abs 1e-5; after each step the parameters within
+   phase 13's tolerance, after step 1 the BatchNorm statistics too, and
+   the Adam moments (and after step 2 the statistics) within its
+   yardstick rule; after each step each module's norm of the Adam
+   moments within 25% of the one rank's, or within twice the yardstick's
+   drift where that is larger (a gradient counted twice moves it by
+   100%, one counted half by 50%); 26/13/4/4 launches a step on every
+   rank; per-rank peak memory.
 
-15. with ``--profile DIR`` only: host-clocked stages of one request and a
+17. with ``--profile DIR`` only: host-clocked stages of one request and a
    ``torch.profiler`` trace of two requests and of two training steps,
    by default and with ``--reproductablity``'s switches and variants
    (kernel tables and busy shares printed, traces and tables written to
@@ -673,6 +703,97 @@ def im2col_cases(dcn):
             if dtype == torch.float32:
                 worst = max(worst, err)
     return worst
+
+
+def spatial_windows():
+    """(what, batch, DCN input shapes, training) of phases 15-16: the two
+    requests (8x480x640 has ``DCN_SHAPES``, 640x640 ``DCN_SHAPES_TRAIN``)
+    and the training step."""
+    shapes = {(HEIGHT, WIDTH): DCN_SHAPES,
+              (TRAIN_SIZE, TRAIN_SIZE): DCN_SHAPES_TRAIN}
+    return ([(f"serve {b}x{h}x{w}", b, shapes[h, w], False)
+             for b, h, w in SP_SERVE]
+            + [(f"train {SP_BATCH}x{TRAIN_SIZE}x{TRAIN_SIZE}", SP_BATCH,
+                DCN_SHAPES_TRAIN, True)])
+
+
+def spatial_window_cases(dcn):
+    """The im2col and the scatter against their plain versions at the
+    windows that phases 15-16 give them on SP_RANKS ranks: at every DCN
+    layer whose output rows split, each rank's window, its first output
+    row ``row0``, its offset and mask rows (+-8 px) and the whole input
+    (``deform_conv2d(row0=)``). The im2col in f32 and bf16 at the
+    requests' and the step's shapes, the scatter (atomic and
+    deterministic) at the step's, each rank's rows of dcols added into the
+    whole height. Layers whose output does not split run whole (phases
+    3-4). Returns the im2col's worst f32 error and the scatter's."""
+    from planerecnet_tpu_torch.ops.dcn_scatter import (dcn_input_grad,
+                                                       dcn_input_grad_plain)
+    worst_cols = worst_scatter = 0.0
+    tol32 = TOL[torch.float32]
+    n_cases = 0
+    for j, (what, b, shapes, train) in enumerate(spatial_windows()):
+        for i, (h, w, cin, stride, _) in enumerate(shapes):
+            ho = (h + 2 - 3) // stride + 1
+            wo = (w + 2 - 3) // stride + 1
+            if ho % SP_RANKS:
+                continue
+            rows = ho // SP_RANKS
+            for dtype in ((torch.float32,) if train else
+                          (torch.float32, torch.bfloat16)):
+                x, off, mask, _, _, _, _ = dcn_inputs(
+                    h, w, cin, stride, dtype, seed=100 + 10 * j + i, batch=b)
+                for rank in range(SP_RANKS):
+                    row0 = rank * rows
+                    o = off[:, row0:row0 + rows].contiguous()
+                    m = mask[:, row0:row0 + rows].contiguous()
+                    kw = dict(stride=stride, padding=1, kernel_size=3,
+                              row0=row0)
+                    name = (f"{what} {h}x{w}x{cin}/s{stride} rank {rank} "
+                            f"(row0 {row0}, {rows} of {ho} rows) "
+                            f"{str(dtype)[6:]}")
+                    got = dcn.deform_im2col(x, o, m, **kw)
+                    want = dcn.deform_im2col_plain(x, o, m, **kw)
+                    torch.cuda.synchronize()
+                    err, ok = close_err(got, want, TOL[dtype])
+                    n_cases += 1
+                    if not ok or not torch.isfinite(got).all():
+                        raise AssertionError(f"im2col disagrees with plain "
+                                             f"at {name}: err {err:.3g}")
+                    if dtype == torch.float32:
+                        worst_cols = max(worst_cols, err)
+                    del got, want
+                    if not train:
+                        continue
+                    idx, cw = dcn.scatter_inputs(o, m, h, w, stride=stride,
+                                                 row0=row0)
+                    g = torch.Generator(device="cuda").manual_seed(
+                        200 + 10 * i + rank)
+                    dcols = torch.randn(b, rows * wo * 9, cin,
+                                        device="cuda", generator=g)
+                    got = dcn_input_grad(idx, cw, dcols, h, w)
+                    want = dcn_input_grad_plain(idx, cw, dcols, h, w)
+                    det = det_twice(lambda: dcn_input_grad(
+                        idx, cw, dcols, h, w, deterministic=True),
+                        f"scatter_det at {name}")
+                    torch.cuda.synchronize()
+                    err, ok = close_err(got, want, tol32)
+                    det_err, det_ok = close_err(det, want, tol32)
+                    n_cases += 1
+                    if not (ok and det_ok and torch.isfinite(got).all()):
+                        raise AssertionError(
+                            f"scatter disagrees with plain at {name}: err "
+                            f"{err:.3g}, deterministic {det_err:.3g}")
+                    worst_scatter = max(worst_scatter, err, det_err)
+                    del idx, cw, dcols, got, want, det
+                del x, off, mask
+    log(f"[spatial-window] im2col (f32, bf16) and scatter (atomic, "
+        f"deterministic) against their plain versions at {n_cases} windows "
+        f"of {SP_RANKS} ranks (row0 > 0 on every rank but the first; "
+        f"offsets +-8 px; the whole input, the window's offset rows): worst "
+        f"f32 error im2col {worst_cols:.3g}, scatter {worst_scatter:.3g} "
+        f"(tol {tol32} of scale; bf16 {TOL[torch.bfloat16]})")
+    return worst_cols, worst_scatter
 
 
 def dice_inputs(seed, b, p, k, n, hw, kind="onehot"):
@@ -2256,6 +2377,338 @@ def phase_check_dataset(work):
     return errors
 
 
+# Phases 15-16, the spatial mesh axis on one card: ranks of this script
+# (``--spatial_rank DIR``, launched through ``tools/run_multihost.py``)
+# over gloo, since NCCL refuses two ranks on one device; SP_RANKS split
+# the image height (a (1, SP_RANKS) data x spatial mesh), one rank of the
+# same program runs it unsplit (a (1, 1) mesh). Two ranks sharing one
+# card check that the split runs and computes the unsplit result; their
+# times are no latency or scaling figure. Serving: PRN-50 with phase 5's
+# seeded weights, SP_REQUESTS timed requests of each SP_SERVE shape
+# (images, height, width): 1x640x640, the latency case that the JAX
+# package's jit_forward names, and 8x480x640, where C5 (15 rows) does
+# not split and is gathered. Training: SP_STEPS steps of the trainer API,
+# PRN-50 with the preset's schedule, a global batch of SP_BATCH at
+# 640x640 (6 images a data index: BatchNorm trains synced), phase 7's
+# synthetic batch; the one rank also takes the steps with cuDNN off, the
+# yardstick of phase 13.
+SP_RANKS = 2
+SP_SERVE = ((1, TRAIN_SIZE, TRAIN_SIZE), (BATCH, HEIGHT, WIDTH))
+SP_REQUESTS = 3
+SP_BATCH, SP_STEPS = 6, 2
+SP_TIMEOUT = 300          # seconds a launch may take
+# Every output of the split within SP_TOL of its scale (the largest
+# magnitude) of the unsplit rank's (tests/test_spmd.py's 1e-4); the
+# losses after step 1 within the JAX 2-D step test's tolerance.
+SP_TOL = 1e-4
+SP_LOSS_TOL = dict(rtol=2e-4, atol=1e-5)
+# The gradient's scale, which the Adam steps hide from the parameters:
+# after step 1 exp_avg is (1 - beta1) g and exp_avg_sq (1 - beta2) g^2, so
+# a module's gradient counted twice moves its exp_avg's norm by 1.0 of
+# itself (3.0 for exp_avg_sq), and one counted half by 0.5 (0.75). Leaf
+# by leaf the norms drift up to ~0.6 from rounding alone (the yardstick's,
+# PERF.md section 6), so the check takes each moment's norm over a module
+# (``moment_norms``): the split's within SP_NORM_TOL of the one rank's, or
+# within DP_YARDSTICK_FACTOR times the yardstick's drift where that is
+# larger; and at least SP_NORM_SEEN of the modules must have a bar under
+# SP_NORM_BLIND, so that the check sees a gradient off by 2x either way.
+SP_NORM_TOL = 0.25
+SP_NORM_BLIND = 0.5
+SP_NORM_SEEN = 0.9
+
+
+def moment_norms(path):
+    """{"moment/module": norm} of the Adam moments in a checkpoint, in
+    f64, over each module of the model: the first two parts of a
+    parameter's name, three under ``backbone.layers`` (29 modules of
+    PRN-50: backbone.conv1, backbone.layers.0, ..., fpn.fpn_convs,
+    inst_head.kernel_tower, ..., depth_decoder.depth_pred)."""
+    sums = {}
+    with np.load(path) as a:
+        for key in a.files:
+            if not key.startswith(("adam/exp_avg/", "adam/exp_avg_sq/")):
+                continue
+            _, moment, name = key.split("/", 2)
+            parts = name.split(".")
+            module = ".".join(parts[:3] if parts[1:2] == ["layers"]
+                              else parts[:2])
+            k = f"{moment}/{module}"
+            sums[k] = sums.get(k, 0.0) + float(np.square(
+                a[key].astype(np.float64)).sum())
+    return {k: v ** 0.5 for k, v in sums.items()}
+
+
+def norm_drifts(want, got):
+    """{key: |got's norm / want's - 1|} (0 where both are 0)."""
+    return {k: (abs(got[k] / v - 1.0) if v else
+                (0.0 if not got[k] else float("inf")))
+            for k, v in want.items()}
+
+
+def spatial_rank(out_dir):
+    """One rank of phases 15-16: serve and train on a (1, world size)
+    mesh with TF32 off; writes ``spatial{world}_rank{rank}.json`` (times,
+    launches, peak memory, losses) and, on rank 0, the first request's
+    outputs of each shape and the checkpoint after each training step
+    (with cuDNN off too, where the world is one rank) into
+    ``out_dir``."""
+    import os
+    from planerecnet_tpu_torch import trainer
+    from planerecnet_tpu_torch.config import PlaneRecNet_50_config
+    from planerecnet_tpu_torch.ops.image import fast_base_transform
+    from planerecnet_tpu_torch.parallel.mesh import local_rows, make_mesh
+    from planerecnet_tpu_torch.parallel.spmd import (initialize_distributed,
+                                                     jit_forward)
+    from planerecnet_tpu_torch.runner import PlaneRecNetRunner
+    from planerecnet_tpu_torch.utils.checkpoint import save_train_state
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    world = initialize_distributed("cuda")
+    try:
+        mesh = make_mesh(world.device, n_data=1, n_spatial=world.size)
+        stem = os.path.join(out_dir, f"spatial{world.size}")
+        first = world.rank == 0
+        cfg = PlaneRecNet_50_config
+        out = {"serve": {}, "train": {}}
+
+        runner = PlaneRecNetRunner(cfg, seed=0, device=world.device)
+        perturb_(runner.model, seed=1)
+        forward = jit_forward(cfg, mesh, spatial=True)
+        for b, h, w in SP_SERVE:
+            reqs = [fast_base_transform(torch.from_numpy(frames(
+                b, h, w, seed=20 + r)).to(world.device))
+                for r in range(SP_REQUESTS + 1)]
+            forward(runner.model, reqs[0])                  # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before, times = read_counts(), []
+            for r, x in enumerate(reqs[1:]):
+                t0 = time.perf_counter()
+                preds = forward(runner.model, x)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+                if r == 0 and first:
+                    torch.save({k: ([t.cpu() for t in v] if isinstance(
+                        v, list) else v.cpu()) for k, v in preds.items()},
+                        f"{stem}_serve_{b}x{h}x{w}.pt")
+            out["serve"][f"{b}x{h}x{w}"] = dict(
+                ms=times, peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                launches={k: n - before[k] for k, n in read_counts().items()})
+        del runner, reqs, preds
+        torch.cuda.empty_cache()
+
+        batch = local_rows(mesh, synthetic_batch(
+            SP_BATCH, TRAIN_SIZE, cfg.max_instances, seed=3))
+        runs = [("", True)] + ([("_cudnn_off", False)] if world.size == 1
+                               else [])
+        for suffix, cudnn in runs:
+            torch.backends.cudnn.enabled = cudnn
+            state = trainer.create_train_state(cfg, seed=0, mesh=mesh)
+            perturb_(state.model, seed=1)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            steps = []
+            for i in range(SP_STEPS):
+                before = read_counts()
+                t0 = time.perf_counter()
+                losses = trainer.train_step(state, batch)
+                torch.cuda.synchronize()
+                steps.append(dict(
+                    ms=(time.perf_counter() - t0) * 1e3,
+                    losses={k: float(v) for k, v in losses.items()},
+                    launches={k: n - before[k]
+                              for k, n in read_counts().items()}))
+                if first:
+                    save_train_state(f"{stem}_train{suffix}_step{i + 1}",
+                                     state)
+            out["train" + suffix] = dict(
+                steps=steps,
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+            del state
+            torch.cuda.empty_cache()
+        with open(f"{stem}_rank{world.rank}.json", "w") as f:
+            json.dump(out, f)
+    finally:
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+def spatial_launch(work, nproc, backend):
+    """Phases 15-16's ranks of one world: (each rank's results, the
+    launch's seconds)."""
+    import os
+    from planerecnet_tpu_torch.tools.run_multihost import launch
+    t0 = time.perf_counter()
+    launch(nproc, ["--spatial_rank", work], platform="cuda", backend=backend,
+           log_dir=os.path.join(work, f"spatial{nproc}_logs"),
+           timeout=SP_TIMEOUT, module="chip_smoke")
+    seconds = time.perf_counter() - t0
+    results = []
+    for r in range(nproc):
+        with open(os.path.join(work, f"spatial{nproc}_rank{r}.json")) as f:
+            results.append(json.load(f))
+    return results, seconds
+
+
+def phase_spatial(card, work, backend="gloo"):
+    """Phases 15-16: the spatial axis on the one card, SP_RANKS ranks
+    against one unsplit rank of the same program (``spatial_rank``);
+    with ``backend="nccl"`` one card a rank, on a host with SP_RANKS.
+    Serving: every output of each request shape within SP_TOL of its scale
+    of the unsplit rank's, 13 im2col launches a request on every rank.
+    Training: the losses of step 1 within SP_LOSS_TOL; after each step the
+    parameters within phase 13's ``DP_TOL``, after step 1 the BatchNorm
+    statistics too, and every other group (the Adam moments; after step 2
+    the statistics, which the one rank's own yardstick puts past
+    ``DP_TOL`` at 6x640x640, PERF.md section 6) within phase 13's
+    yardstick rule; after each step each module's norm of the Adam moments
+    within SP_NORM_TOL of the one rank's or DP_YARDSTICK_FACTOR times the
+    yardstick's drift; each rank launching 26/13/4/4 a step. Returns each
+    rank's launches and the unsplit rank's, by path."""
+    import os
+    torch.cuda.empty_cache()
+    one, one_s = spatial_launch(work, 1, backend)
+    split, split_s = spatial_launch(work, SP_RANKS, backend)
+    where = (f"{SP_RANKS} ranks sharing one card over gloo: no latency or "
+             f"scaling figure" if backend == "gloo" else
+             f"{SP_RANKS} ranks, one card each over {backend}")
+    one = one[0]
+    per_request = {k: 0 for k in kernel_counters()}
+    per_request["dcn_im2col"] = DCN_LAYERS_PRN50
+    per_step = launches_per_step(deterministic=False)
+
+    def stem(n):
+        return os.path.join(work, f"spatial{n}")
+
+    for b, h, w in SP_SERVE:
+        shape = f"{b}x{h}x{w}"
+        want = torch.load(f"{stem(1)}_serve_{shape}.pt")
+        got = torch.load(f"{stem(SP_RANKS)}_serve_{shape}.pt")
+        errs = {}
+        for key, value in want.items():
+            for i, (a, g) in enumerate(zip(
+                    value if isinstance(value, list) else [value],
+                    got[key] if isinstance(got[key], list) else [got[key]])):
+                scale = float(a.abs().max())
+                errs[f"{key}{i}"] = float((g - a).abs().max()) / max(scale,
+                                                                     1e-30)
+        worst = max(errs.values())
+        for r, res in enumerate(split + [one]):
+            n = res["serve"][shape]["launches"]
+            if n != {k: v * SP_REQUESTS for k, v in per_request.items()}:
+                raise AssertionError(f"spatial serve {shape}, rank {r}: "
+                                     f"launches {n}")
+        ms = [[round(t, 3) for t in res["serve"][shape]["ms"]]
+              for res in split + [one]]
+        peaks = [round(res["serve"][shape]["peak_gib"], 3) for res in split]
+        log(f"[spatial-serve] PRN-50 {shape} f32, TF32 off, {SP_RANKS} "
+            f"ranks splitting the height ({where}): ms/request by rank "
+            f"{ms[:-1]} (medians {[float(np.median(m)) for m in ms[:-1]]}) "
+            f"against one unsplit rank's {ms[-1]} (median "
+            f"{float(np.median(ms[-1])):.3f}); peak "
+            f"memory by rank {peaks} "
+            f"GiB against {one['serve'][shape]['peak_gib']:.3f} GiB; "
+            f"largest error over scale {worst:.3g} (tol {SP_TOL}) "
+            f"{json.dumps({k: float(f'{v:.3g}') for k, v in errs.items()})}; "
+            f"{DCN_LAYERS_PRN50} im2col launches a request on every rank; "
+            f"{card}")
+        if not worst <= SP_TOL:
+            raise AssertionError(f"spatial serve {shape}: outputs off the "
+                                 f"unsplit rank's by {worst:.3g} of scale")
+
+    for r, res in enumerate(split + [one]):
+        for i, step in enumerate(res["train"]["steps"]):
+            if step["launches"] != per_step:
+                raise AssertionError(f"spatial train, rank {r} step {i}: "
+                                     f"launches {step['launches']}")
+    want = one["train"]["steps"][0]["losses"]
+    for r, res in enumerate(split):
+        got = res["train"]["steps"][0]["losses"]
+        bad = {k: (got[k], v) for k, v in want.items()
+               if not abs(got[k] - v) <= SP_LOSS_TOL["atol"]
+               + SP_LOSS_TOL["rtol"] * abs(v)}
+        if bad or not all(np.isfinite(list(got.values()))):
+            raise AssertionError(f"spatial train, rank {r}: step-1 losses "
+                                 f"off the unsplit rank's: {bad}")
+    bad = []
+    for step in range(1, SP_STEPS + 1):
+        one_ckpt = f"{stem(1)}_train_step{step}.npz"
+        shares, leaves = dp_shares(one_ckpt,
+                                   f"{stem(SP_RANKS)}_train_step{step}.npz")
+        yardstick, yard_leaves = dp_shares(
+            one_ckpt, f"{stem(1)}_train_cudnn_off_step{step}.npz")
+        log(f"[spatial-train] after step {step}, largest error over the "
+            f"JAX tolerance (rtol {DP_TOL['rtol']}, atol {DP_TOL['atol']}) "
+            f"by group: {SP_RANKS} ranks against 1 {json.dumps(shares)} "
+            f"{leaves}; the yardstick, 1 rank against itself with cuDNN "
+            f"off, {json.dumps(yardstick)} {yard_leaves}")
+        # The parameters within the tolerance; after step 1 (the
+        # gradients taken at equal parameters) the statistics too; else
+        # within the yardstick rule of phase 13's Adam moments.
+        strict = ("params", "batch_stats") if step == 1 else ("params",)
+        for group, share in shares.items():
+            bar = 1.0 if group in strict else DP_YARDSTICK_FACTOR * max(
+                yardstick[group], 1.0)
+            if share > bar:
+                bad.append(f"step {step} {group} {share:.3g} > {bar:.3g}")
+        norms = moment_norms(one_ckpt)
+        drift = norm_drifts(norms, moment_norms(
+            f"{stem(SP_RANKS)}_train_step{step}.npz"))
+        yard = norm_drifts(norms, moment_norms(
+            f"{stem(1)}_train_cudnn_off_step{step}.npz"))
+        bars = {k: max(SP_NORM_TOL, DP_YARDSTICK_FACTOR * yard[k])
+                for k in drift}
+        off = sorted((drift[k] / bars[k], k) for k in drift
+                     if drift[k] > bars[k])
+        seen = sum(b < SP_NORM_BLIND for b in bars.values())
+        worst = sorted(((round(drift[k], 4), round(yard[k], 4), k)
+                        for k in drift), reverse=True)[:6]
+        log(f"[spatial-train] after step {step}, the Adam moments' norm "
+            f"by module, {SP_RANKS} ranks against 1: largest drift "
+            f"{max(drift.values()):.3g}, the yardstick's "
+            f"{max(yard.values()):.3g}; median "
+            f"{np.median(list(drift.values())):.3g} against "
+            f"{np.median(list(yard.values())):.3g}; furthest off (drift, "
+            f"the yardstick's, moment/module) {worst}; {len(off)} of "
+            f"{len(drift)} past their bar (max({SP_NORM_TOL}, "
+            f"{DP_YARDSTICK_FACTOR}x the yardstick's)); {seen} have a bar "
+            f"under {SP_NORM_BLIND} (they would see a gradient off by 2x)")
+        if off:
+            bad.append(f"step {step} moment norms off on {len(off)} "
+                       f"modules, worst {off[-1][1]} at {off[-1][0]:.3g}x "
+                       f"its bar")
+        if seen < SP_NORM_SEEN * len(bars):
+            bad.append(f"step {step}: the yardstick leaves only {seen} of "
+                       f"{len(bars)} modules a bar under {SP_NORM_BLIND}")
+    step_ms = [[round(s["ms"], 1) for s in res["train"]["steps"]]
+               for res in split]
+    log(f"[spatial-train] PRN-50 {SP_BATCH}x{TRAIN_SIZE}x{TRAIN_SIZE} f32, "
+        f"TF32 off, BatchNorm synced, {SP_RANKS} ranks splitting the height "
+        f"({where}): ms/step by rank "
+        f"{step_ms} against one unsplit rank's "
+        f"{[round(s['ms'], 1) for s in one['train']['steps']]}; peak memory "
+        f"by rank {[round(res['train']['peak_gib'], 3) for res in split]} GiB "
+        f"against {one['train']['peak_gib']:.3f} GiB; launch to exit: "
+        f"{SP_RANKS} ranks {split_s:.1f} s, 1 rank {one_s:.1f} s; step-1 "
+        f"losses "
+        f"{json.dumps(split[0]['train']['steps'][0]['losses'])} against "
+        f"{json.dumps(want)}; {card}")
+    if bad:
+        raise AssertionError(f"spatial train: the split checkpoint is off "
+                             f"the unsplit one: {bad}")
+
+    def total(res, path):
+        runs = [res[path]] if path == "train" else list(res[path].values())
+        counts = [s["launches"] for run in runs
+                  for s in (run["steps"] if path == "train" else [run])]
+        return {k: sum(c[k] for c in counts) for k in counts[0]}
+
+    return ({f"spatial_{p}_rank{r}": total(res, p)
+             for p in ("serve", "train") for r, res in enumerate(split)}
+            | {f"spatial_{p}_one_process": total(one, p)
+               for p in ("serve", "train")})
+
+
 PATHS_REPEATS = 10
 
 
@@ -2303,6 +2756,8 @@ def main():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 1
+    if "--spatial_rank" in sys.argv:
+        return spatial_rank(sys.argv[sys.argv.index("--spatial_rank") + 1])
     from planerecnet_tpu_torch.config import PlaneRecNet_50_config
     from planerecnet_tpu_torch.ops import dcn
 
@@ -2311,6 +2766,14 @@ def main():
         time_paths(card)
         return 0
     phase_build()
+    if "--spatial" in sys.argv:
+        spatial_window_cases(dcn)
+        work = tempfile.mkdtemp(prefix="prn_spatial_")
+        try:
+            phase_spatial(card, work)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+        return 0
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if "--dice" in sys.argv:
@@ -2340,6 +2803,9 @@ def main():
     if not cases:
         return 0
     worst = max(worst, im2col_cases(dcn))
+    cols_err_window, scatter_err_window = spatial_window_cases(dcn)
+    worst = max(worst, cols_err_window)
+    scatter_err = max(scatter_err, scatter_err_window)
     dice = phase_dice()
     phase_dcn_grads()
     check_reflect_pad()
@@ -2360,6 +2826,7 @@ def main():
         torch.cuda.empty_cache()
         dp_ranks, dp_one = phase_dp(card, work)
         phase_check_dataset(work)
+        spatial = phase_spatial(card, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     if "--profile" in sys.argv:
@@ -2379,12 +2846,14 @@ def main():
                  f"{TRAIN_SIZE}x{TRAIN_SIZE}, f32")
 
     def new_paths(name):
-        """This kernel's launches on the paths of phases 11-13: one bf16
-        request, the bf16 training phase's timed steps, each data-parallel
-        rank's run and the one-process twin's."""
+        """This kernel's launches on the paths of phases 11-13 and 15-16:
+        one bf16 request, the bf16 training phase's timed steps, each
+        data-parallel rank's run and the one-process twin's, and each
+        spatial rank's timed requests and steps and the unsplit rank's."""
         return {"serve_bf16": serve_bf16[name], "train_bf16": train_bf16[name],
                 **{f"dp_rank{r}": n[name] for r, n in enumerate(dp_ranks)},
-                "dp_one_process": dp_one[name]}
+                "dp_one_process": dp_one[name],
+                **{path: n[name] for path, n in spatial.items()}}
     def dice_row(d, det):
         name = f"dice_lava_{d}" + ("_det" if det else "")
         key = "det_" if det else ""

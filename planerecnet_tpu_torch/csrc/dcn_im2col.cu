@@ -9,12 +9,16 @@
 // (B*Ho*Wo, K*Cin) @ (K*Cin, Cout), stays a plain matmul in the wrapper.
 //
 // For batch b, output pixel p = (oy, ox) and tap k = (ky, kx):
-//   sy = oy*stride - pad + ky + offset[b, p, 2k]
+//   sy = (row0 + oy)*stride - pad + ky + offset[b, p, 2k]
 //   sx = ox*stride - pad + kx + offset[b, p, 2k+1]
 //   cols[b, p, k*C + c] = sum over the corners (00, 01, 10, 11) of
 //       (w_corner * mask[b, p, k]) * x[b, y, x, c]
 // where a corner outside the image has weight 0. The cols layout is the
-// one that weight.reshape(K*C, Cout) of an HWIO kernel expects.
+// one that weight.reshape(K*C, Cout) of an HWIO kernel expects. row0 is
+// the first output row of a window (a rank of the spatial mesh axis
+// computes rows row0..row0+Ho-1 of the whole map's Hout from the whole x);
+// it is added to the integer row before the offset, so the sample
+// position's f32 rounding is the whole map's.
 //
 // What bounds it: bytes. It does ~9 flops per sampled value against at
 // least 2 bytes moved per value, far under the card's ~20 flops/byte f32
@@ -144,7 +148,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     dcn_im2col_kernel(const T* __restrict__ x, const float* __restrict__ offset,
                       const float* __restrict__ mask, T* __restrict__ cols,
                       int B, int H, int W, int C, int Ho, int Wo, int ks,
-                      int stride, int pad, int tile) {
+                      int stride, int pad, int row0, int tile) {
   using P = Pack<T, VEC>;
   // Rows a thread keeps in flight: four, two for bf16 vectors, whose
   // sixteen corners of eight channels would not fit in registers.
@@ -180,7 +184,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     const int ky = k / ks;
     const int kx = k - ky * ks;
     const float sy =
-        static_cast<float>(oy * stride - pad + ky) + s_off[2 * row];
+        static_cast<float>((row0 + oy) * stride - pad + ky) + s_off[2 * row];
     const float sx =
         static_cast<float>(ox * stride - pad + kx) + s_off[2 * row + 1];
     const float m = s_mask[row];
@@ -265,7 +269,7 @@ __global__ void __launch_bounds__(kThreads, 2)
 template <typename T>
 int launch(const T* x, const float* offset, const float* mask, T* cols, int B,
            int H, int W, int C, int Ho, int Wo, int ks, int stride, int pad,
-           cudaStream_t stream) {
+           int row0, cudaStream_t stream) {
   constexpr int kVec16 = 16 / sizeof(T);  // channels in 16 bytes
   // 16-byte accesses need C to be a multiple of the vector and both
   // tensors to start on a 16-byte boundary (a view may not).
@@ -283,11 +287,13 @@ int launch(const T* x, const float* offset, const float* mask, T* cols, int B,
   if (vec) {
     dcn_im2col_kernel<T, kVec16><<<static_cast<unsigned>(blocks), kThreads,
                                    smem, stream>>>(
-        x, offset, mask, cols, B, H, W, C, Ho, Wo, ks, stride, pad, tile);
+        x, offset, mask, cols, B, H, W, C, Ho, Wo, ks, stride, pad, row0,
+        tile);
   } else {
     dcn_im2col_kernel<T, 1><<<static_cast<unsigned>(blocks), kThreads, smem,
                               stream>>>(
-        x, offset, mask, cols, B, H, W, C, Ho, Wo, ks, stride, pad, tile);
+        x, offset, mask, cols, B, H, W, C, Ho, Wo, ks, stride, pad, row0,
+        tile);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -299,22 +305,22 @@ extern "C" {
 // Returns the cudaError_t of the launch (0 = cudaSuccess).
 int prn_dcn_im2col_f32(const void* x, const void* offset, const void* mask,
                        void* cols, int B, int H, int W, int C, int Ho, int Wo,
-                       int ks, int stride, int pad, void* stream) {
+                       int ks, int stride, int pad, int row0, void* stream) {
   return launch(static_cast<const float*>(x),
                 static_cast<const float*>(offset),
                 static_cast<const float*>(mask), static_cast<float*>(cols), B,
-                H, W, C, Ho, Wo, ks, stride, pad,
+                H, W, C, Ho, Wo, ks, stride, pad, row0,
                 static_cast<cudaStream_t>(stream));
 }
 
 int prn_dcn_im2col_bf16(const void* x, const void* offset, const void* mask,
                         void* cols, int B, int H, int W, int C, int Ho, int Wo,
-                        int ks, int stride, int pad, void* stream) {
+                        int ks, int stride, int pad, int row0, void* stream) {
   return launch(static_cast<const __nv_bfloat16*>(x),
                 static_cast<const float*>(offset),
                 static_cast<const float*>(mask),
                 static_cast<__nv_bfloat16*>(cols), B, H, W, C, Ho, Wo, ks,
-                stride, pad, static_cast<cudaStream_t>(stream));
+                stride, pad, row0, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -7,6 +7,9 @@ A block's deformable conv2 replaces the 3x3 conv, chosen per block by
   * first block of a stage: ``use_dcn = dcn_layers[s] >= blocks``
   * block i >= 1: ``use_dcn = (i + dcn_layers[s]) >= blocks and
     i % dcn_interval == 0``
+Every forward takes an optional spatial context ``rows``
+(``parallel/halo.py::Rows``): with it, each layer runs on this rank's rows
+of its map through the row-window ops of ``models/layers.py``.
 """
 
 from __future__ import annotations
@@ -17,7 +20,8 @@ import torch
 from torch import nn
 
 from planerecnet_tpu_torch.config import BackboneConfig
-from planerecnet_tpu_torch.models.layers import BatchNorm2d
+from planerecnet_tpu_torch.models.layers import (BatchNorm2d, batch_norm,
+                                                 conv2d, max_pool2d)
 from planerecnet_tpu_torch.ops.dcn import deform_conv2d
 
 
@@ -29,6 +33,13 @@ class DeformableConv2d(nn.Module):
     Takes and returns NCHW. ``deterministic`` (set by
     ``PlaneRecNet.set_deterministic``) selects the backward that sums in a
     fixed order on the card.
+
+    Under a spatial context the offset and modulator convs are row-window
+    convs, the clamp is the whole map's, and the sampling reads the whole
+    input (``Rows.whole``: offsets are unbounded, so a sample may land on
+    any row) for this rank's output rows (``deform_conv2d(row0=)``). Its
+    backward scatters dx into the whole height; the gather's backward sums
+    it over the spatial ranks onto the rows each owns.
     """
 
     def __init__(self, cin: int, cout: int, kernel_size: int = 3,
@@ -48,24 +59,34 @@ class DeformableConv2d(nn.Module):
         self.dtype = dtype
         self.deterministic = False
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, rows=None) -> torch.Tensor:
+        h, w = x.shape[-2:]
+        src, row0 = x, 0
+        if rows is not None:
+            h = rows.rows_of(x)
+            src = rows.whole(x)
+            if not rows.splits((h + 2 * self.padding - self.kernel_size)
+                               // self.stride + 1):
+                x, rows = src, None     # a whole output: the plain layer
         # Sub-pixel sampling positions lose too much precision in bf16.
         with torch.autocast(x.device.type, enabled=False):
-            offset = self.offset_conv(x.float())
-        modulator = 2.0 * torch.sigmoid(self.modulator_conv(x))
-        h, w = x.shape[-2:]
+            offset = conv2d(self.offset_conv, x.float(), rows)
+        modulator = 2.0 * torch.sigmoid(conv2d(self.modulator_conv, x, rows))
+        if rows is not None:
+            row0 = rows.window(rows.rows_of(offset))[0]
         max_offset = max(h, w) / 4.0
         offset = offset.clamp(-max_offset, max_offset)
 
         dtype = self.dtype or x.dtype
         weight = self.regular_conv.weight.permute(2, 3, 1, 0)   # HWIO
         out = deform_conv2d(
-            x.to(dtype).permute(0, 2, 3, 1).contiguous(),
+            src.to(dtype).permute(0, 2, 3, 1).contiguous(),
             offset.permute(0, 2, 3, 1).contiguous(),
             modulator.float().permute(0, 2, 3, 1).contiguous(),
             weight.to(dtype), self.regular_conv.bias,
             stride=self.stride, padding=self.padding,
-            kernel_size=self.kernel_size, deterministic=self.deterministic)
+            kernel_size=self.kernel_size, deterministic=self.deterministic,
+            row0=row0)
         return out.permute(0, 3, 1, 2)
 
 
@@ -97,11 +118,15 @@ class Bottleneck(nn.Module):
             nn.Conv2d(inplanes, out, 1, stride=stride, bias=False),
             BatchNorm2d(out)) if has_downsample else None)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = self.relu(self.bn1(self.conv1(x)))
-        out = self.relu(self.bn2(self.conv2(out)))
-        out = self.bn3(self.conv3(out))
-        residual = x if self.downsample is None else self.downsample(x)
+    def forward(self, x: torch.Tensor, rows=None) -> torch.Tensor:
+        out = self.relu(batch_norm(self.bn1, self.conv1(x), rows))
+        out = (self.conv2(out, rows)
+               if isinstance(self.conv2, DeformableConv2d)
+               else conv2d(self.conv2, out, rows))
+        out = self.relu(batch_norm(self.bn2, out, rows))
+        out = batch_norm(self.bn3, self.conv3(out), rows)
+        residual = x if self.downsample is None else batch_norm(
+            self.downsample[1], conv2d(self.downsample[0], x, rows), rows)
         return self.relu(out + residual)
 
 
@@ -169,11 +194,14 @@ class ResNetBackbone(nn.Module):
     def channels(self) -> Tuple[int, ...]:
         return (256, 512, 1024, 2048)[:len(self.layers)]
 
-    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
-        x = self.maxpool(self.relu(self.bn1(self.conv1(x))))
+    def forward(self, x: torch.Tensor, rows=None
+                ) -> Tuple[torch.Tensor, ...]:
+        x = self.relu(batch_norm(self.bn1, conv2d(self.conv1, x, rows), rows))
+        x = max_pool2d(self.maxpool, x, rows)
         outs = []
         for stage in self.layers:
-            x = stage(x)
+            for block in stage:
+                x = block(x, rows)
             outs.append(x)
         return tuple(outs)
 

@@ -6,6 +6,9 @@ deconv blocks and a Softplus head at 1/2 input resolution. At the coarsest
 level it injects the instance masks of every grid cell: the detached mask
 features times the detached kernels of all levels, one batched matmul
 over N = sum S^2 channels, sigmoid, 1x1 conv to F channels, resized x0.25.
+Under a spatial context ``rows`` (``parallel/halo.py::Rows``) every map is
+in the layout its rule gives it; the mask assembly is per pixel, so it
+runs on this rank's rows of the mask features.
 """
 
 from __future__ import annotations
@@ -16,7 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from planerecnet_tpu_torch.models.layers import ReflectConvBNReLU
+from planerecnet_tpu_torch.models.layers import ReflectConvBNReLU, run_rows
 from planerecnet_tpu_torch.ops.image import ReflectPad2d, resize_bilinear
 
 
@@ -47,7 +50,8 @@ class DepthDecoderFPN(nn.Module):
 
     def forward(self, feature_maps: Sequence[torch.Tensor],
                 seg_preds: torch.Tensor,
-                kernel_preds: Sequence[torch.Tensor]) -> torch.Tensor:
+                kernel_preds: Sequence[torch.Tensor], rows=None
+                ) -> torch.Tensor:
         b, k, h, w = seg_preds.shape
         # --- dynamic-conv mask assembly over all grid cells ---
         flat_kernels = torch.cat(
@@ -57,17 +61,18 @@ class DepthDecoderFPN(nn.Module):
         masks = torch.sigmoid(torch.matmul(flat_kernels, seg))
         masks = masks.reshape(b, -1, h, w).to(seg_preds.dtype)
         masks = self.conv1x1(masks)
-        masks = resize_bilinear(masks, (h // 4, w // 4))
+        gh = h if rows is None else rows.rows_of(seg_preds)
+        masks = resize_bilinear(masks, (gh // 4, w // 4), rows)
 
         c5, c4, c3, c2 = reversed(list(feature_maps))
-        x = self.deconv1(self.conv1(self.latlayer1(c5)))
-        x = self.refine_conv(torch.cat([x, x * masks], dim=1))
-        l2 = self.conv2(self.latlayer2(c4))
-        x = self.deconv2(torch.cat([l2, x], dim=1))
-        l3 = self.conv3(self.latlayer3(c3))
-        x = self.deconv3(torch.cat([l3, x], dim=1))
-        l4 = self.conv4(self.latlayer4(c2))
-        x = self.deconv4(torch.cat([l4, x], dim=1))
+        x = self.deconv1(self.conv1(self.latlayer1(c5), rows), rows)
+        x = self.refine_conv(torch.cat([x, x * masks], dim=1), rows)
+        l2 = self.conv2(self.latlayer2(c4), rows)
+        x = self.deconv2(torch.cat([l2, x], dim=1), rows)
+        l3 = self.conv3(self.latlayer3(c3), rows)
+        x = self.deconv3(torch.cat([l3, x], dim=1), rows)
+        l4 = self.conv4(self.latlayer4(c2), rows)
+        x = self.deconv4(torch.cat([l4, x], dim=1), rows)
         # f32 in the bf16 mode too (the JAX package's is bf16), as
         # torch's autocast takes it on the card.
-        return F.softplus(self.depth_pred(x).float())
+        return F.softplus(run_rows(self.depth_pred, x, rows).float())

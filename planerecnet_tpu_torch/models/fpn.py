@@ -3,6 +3,8 @@
 Counterpart of ``planerecnet_tpu/models/fpn.py``: inputs arrive high-res to
 low-res (C2..C5) and a running sum is resized DOWN to each next level before
 being added to that level's lateral, unlike a classic top-down FPN.
+Under a spatial context ``rows`` (``parallel/halo.py::Rows``) the levels
+are in the layout its rule gives them, and the resizes' sizes are global.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from planerecnet_tpu_torch.config import FPNConfig
+from planerecnet_tpu_torch.models.layers import conv2d
 from planerecnet_tpu_torch.ops.image import resize_bilinear, resize_nearest
 
 
@@ -36,7 +39,8 @@ class FPN(nn.Module):
         self.fpn_convs = nn.ModuleList(
             nn.Conv2d(num_features, num_features, 3, padding=1) for _ in used)
 
-    def forward(self, inputs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    def forward(self, inputs: Sequence[torch.Tensor], rows=None
+                ) -> List[torch.Tensor]:
         resize = (resize_nearest if self.interpolation_mode == "nearest"
                   else resize_bilinear)
         laterals = []
@@ -44,18 +48,22 @@ class FPN(nn.Module):
         for conv, feat in zip(self.lateral_convs,
                               inputs[self.start_level:]):
             lat = conv(feat)
-            x = lat if x is None else lat + resize(x, feat.shape[-2:]).to(
+            size = (feat.shape[-2] if rows is None else rows.rows_of(feat),
+                    feat.shape[-1])
+            x = lat if x is None else lat + resize(x, size, rows).to(
                 lat.dtype)
             laterals.append(x)
 
         outs = []
         for conv, lat in zip(self.fpn_convs, laterals):
-            p = conv(lat)
+            p = conv2d(conv, lat, rows)
             outs.append(F.relu(p) if self.relu_pred_layers else p)
 
         if self.high_level_mode == "original":
             # max_pool2d(kernel=1, stride=2) is stride-2 subsampling.
-            outs.append(outs[-1][:, :, ::2, ::2])
+            top = outs[-1] if rows is None else rows.whole(outs[-1])
+            top = top[:, :, ::2, ::2]
+            outs.append(top if rows is None else rows.local(top))
         return outs
 
 

@@ -3,6 +3,9 @@
 Counterpart of ``planerecnet_tpu/models/heads.py``; module names follow the
 reference's torch state_dict (``inst_head.cate_tower.{3i}`` conv,
 ``.{3i+1}`` GroupNorm; ``mask_head.convs_all_levels.{l}.conv{j}.{0,1}``).
+The instance head runs on S x S grids, whole on every rank; the mask head
+takes a spatial context ``rows`` (``parallel/halo.py::Rows``) and runs on
+each level in the layout its rule gives it.
 """
 
 from __future__ import annotations
@@ -15,7 +18,7 @@ from torch import nn
 
 from planerecnet_tpu_torch.config import SOLOv2Config
 from planerecnet_tpu_torch.models.backbone import DeformableConv2d
-from planerecnet_tpu_torch.models.layers import GroupNorm
+from planerecnet_tpu_torch.models.layers import GroupNorm, conv2d, group_norm
 from planerecnet_tpu_torch.ops.image import point_sample_grid, resize_bilinear
 
 
@@ -24,12 +27,26 @@ def bias_init_with_prob(prior_prob: float) -> float:
     return float(-math.log((1 - prior_prob) / prior_prob))
 
 
-def _with_coords(x: torch.Tensor) -> torch.Tensor:
-    """Append the (x, y) coord-conv channels to NCHW ``x``."""
+def _with_coords(x: torch.Tensor, rows=None) -> torch.Tensor:
+    """Append the (x, y) coord-conv channels to NCHW ``x`` (under a spatial
+    context, the whole map's coordinates at this rank's rows)."""
     b, _, h, w = x.shape
-    coord = point_sample_grid(h, w, device=x.device).to(x.dtype)
-    coord = coord.permute(2, 0, 1)[None].expand(b, 2, h, w)
+    if rows is None or not rows.sharded(x):
+        coord = point_sample_grid(h, w, device=x.device)
+    else:
+        g = rows.rows_of(x)
+        coord = point_sample_grid(g, w, device=x.device,
+                                  window=rows.window(g))
+    coord = coord.to(x.dtype).permute(2, 0, 1)[None].expand(b, 2, h, w)
     return torch.cat([x, coord], dim=1)
+
+
+def _conv_gn_relu(seq: nn.Sequential, x: torch.Tensor, rows=None
+                  ) -> torch.Tensor:
+    """``seq(x)`` of a conv + GroupNorm + ReLU, under ``rows`` too."""
+    if rows is None:
+        return seq(x)
+    return seq[2](group_norm(seq[1], conv2d(seq[0], x, rows), rows))
 
 
 def _gn(c: int) -> GroupNorm:
@@ -98,15 +115,19 @@ class SOLOv2MaskHead(nn.Module):
             nn.Conv2d(mc, cfg.num_masks, 1, bias=False), _gn(cfg.num_masks),
             nn.ReLU())
 
-    def forward(self, features: Sequence[torch.Tensor]) -> torch.Tensor:
+    def forward(self, features: Sequence[torch.Tensor], rows=None
+                ) -> torch.Tensor:
         if len(features) != self.num_levels:
             raise ValueError(f"{len(features)} levels, expected "
                              f"{self.num_levels}")
-        out = self.convs_all_levels[0]["conv0"](features[0])
+        out = _conv_gn_relu(self.convs_all_levels[0]["conv0"], features[0],
+                            rows)
         for i in range(1, self.num_levels):
-            x = _with_coords(features[i]) if i == 3 else features[i]
+            x = _with_coords(features[i], rows) if i == 3 else features[i]
             for j in range(i):
-                x = self.convs_all_levels[i][f"conv{j}"](x)
-                x = resize_bilinear(x, (2 * x.shape[-2], 2 * x.shape[-1]))
+                x = _conv_gn_relu(self.convs_all_levels[i][f"conv{j}"], x,
+                                  rows)
+                h = x.shape[-2] if rows is None else rows.rows_of(x)
+                x = resize_bilinear(x, (2 * h, 2 * x.shape[-1]), rows)
             out = out + x
-        return self.conv_pred(out)
+        return _conv_gn_relu(self.conv_pred, out, rows)

@@ -10,6 +10,12 @@ package's layouts:
   ``mask_pred``:    (B, H/4, W/4, num_masks) mask features
   ``depth_pred``:   (B, H/2, W/2, 1) softplus depth
 The modules inside run NCHW.
+
+``forward(x, spatial=rows)`` is the forward of one rank of the spatial
+mesh axis (``parallel/halo.py::Rows``): ``x`` holds this rank's rows of
+the images, every map is row-sharded or whole as the context's rule
+gives it, the instance head runs on its S x S grids whole on every rank,
+and the dict returned is the whole images' on every rank.
 """
 
 from __future__ import annotations
@@ -96,23 +102,30 @@ class PlaneRecNet(nn.Module):
                     m.eval()
         return self
 
-    def forward(self, x: torch.Tensor) -> Dict:
-        cfg = self.cfg
+    def forward(self, x: torch.Tensor, spatial=None) -> Dict:
+        cfg, rows = self.cfg, spatial
         with torch.autocast(x.device.type, dtype=torch.bfloat16,
                             enabled=self.dtype == torch.bfloat16):
-            feats = self.backbone(x.permute(0, 3, 1, 2))
-            features = self.fpn([feats[i] for i in cfg.fpn.selected_layers])
+            feats = self.backbone(x.permute(0, 3, 1, 2), rows)
+            features = self.fpn([feats[i] for i in cfg.fpn.selected_layers],
+                                rows)
             # Instance branch: halve p2 so the level strides are 8, 8, 16, 32.
             p2 = features[0]
-            ins_feats = [resize_bilinear(p2, (p2.shape[-2] // 2,
-                                              p2.shape[-1] // 2)),
+            h2 = p2.shape[-2] if rows is None else rows.rows_of(p2)
+            ins_feats = [resize_bilinear(p2, (h2 // 2, p2.shape[-1] // 2),
+                                         rows),
                          *features[1:NUM_INSTANCE_LEVELS]]
+            if rows is not None:
+                ins_feats = [rows.whole(f) for f in ins_feats]
             cate_preds, kernel_preds = self.inst_head(ins_feats)
             n_mask = len(cfg.solov2.masks_in_features)
-            mask_pred = self.mask_head(features[:n_mask])
+            mask_pred = self.mask_head(features[:n_mask], rows)
             depth_pred = self.depth_decoder(
                 [feats[i] for i in cfg.depth.selected_layers], mask_pred,
-                kernel_preds)
+                kernel_preds, rows)
+            if rows is not None:
+                mask_pred = rows.whole(mask_pred)
+                depth_pred = rows.whole(depth_pred)
 
         def nhwc(t):
             return t.permute(0, 2, 3, 1)

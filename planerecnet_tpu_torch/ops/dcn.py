@@ -41,16 +41,16 @@ def _library() -> ctypes.CDLL:
     lib = cuda_build.library("dcn_im2col")
     for suffix in _DTYPES.values():
         fn = getattr(lib, f"prn_dcn_im2col_{suffix}")
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 10
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return lib
 
 
-def _check_args(x, offset, mask, kernel_size):
+def _check_args(x, offset, mask, kernel_size, stride, padding, row0):
     if x.dim() != 4 or offset.dim() != 4 or mask.dim() != 4:
         raise ValueError("x, offset and mask must be 4-D (NHWC)")
-    b, _, _, _ = x.shape
+    b, h, _, _ = x.shape
     k = kernel_size * kernel_size
     ob, ho, wo, oc = offset.shape
     if ob != b or oc != 2 * k:
@@ -58,16 +58,22 @@ def _check_args(x, offset, mask, kernel_size):
                          f"batch {b} and {k} taps")
     if tuple(mask.shape) != (b, ho, wo, k):
         raise ValueError(f"mask {tuple(mask.shape)} != {(b, ho, wo, k)}")
+    rows = (h + 2 * padding - kernel_size) // stride + 1
+    if row0 < 0 or row0 + ho > rows:
+        raise ValueError(f"output rows {row0}..{row0 + ho - 1} outside the "
+                         f"{rows} rows of a {h}-row input")
 
 
 def _sample_positions(offset: torch.Tensor, stride: int, padding: int,
-                      kernel_size: int):
+                      kernel_size: int, row0: int = 0):
     """Float sample coordinates (sy, sx), each (B, Ho*Wo*K) f32, row
-    (p, k) for output pixel p and tap k."""
+    (p, k) for output pixel p and tap k; the offset's rows are the output
+    rows ``row0..row0+Ho-1`` (the integer part is exact, so a window's
+    positions are the whole map's)."""
     b, ho, wo, _ = offset.shape
     k = kernel_size * kernel_size
     dev = offset.device
-    oy = (torch.arange(ho, device=dev) * stride - padding).float()
+    oy = ((row0 + torch.arange(ho, device=dev)) * stride - padding).float()
     ox = (torch.arange(wo, device=dev) * stride - padding).float()
     taps = torch.arange(kernel_size, device=dev, dtype=torch.float32)
     ty, tx = torch.meshgrid(taps, taps, indexing="ij")
@@ -106,19 +112,20 @@ def _gather_rows(x_flat: torch.Tensor, flat_id: torch.Tensor) -> torch.Tensor:
 
 def deform_im2col_plain(x: torch.Tensor, offset: torch.Tensor,
                         mask: torch.Tensor, *, stride: int = 1,
-                        padding: int = 1, kernel_size: int = 3
-                        ) -> torch.Tensor:
-    """Plain PyTorch deformable im2col: (B, Ho*Wo, K*Cin) in ``x.dtype``.
+                        padding: int = 1, kernel_size: int = 3,
+                        row0: int = 0) -> torch.Tensor:
+    """Plain PyTorch deformable im2col: (B, Ho*Wo, K*Cin) in ``x.dtype``,
+    for the output rows ``row0..row0+Ho-1`` (Ho the offset's rows).
 
     The arithmetic of the JAX package's ``_forward_chunk``: f32 sample
     positions, four validity-weighted corner gathers in the order
     (00, 01, 10, 11), their sum, then the modulation.
     """
-    _check_args(x, offset, mask, kernel_size)
+    _check_args(x, offset, mask, kernel_size, stride, padding, row0)
     b, h, w, cin = x.shape
     _, ho, wo, _ = offset.shape
     k = kernel_size * kernel_size
-    sy, sx = _sample_positions(offset, stride, padding, kernel_size)
+    sy, sx = _sample_positions(offset, stride, padding, kernel_size, row0)
     _, _, _, _, corners = _corners(sy, sx, h, w)
     x_flat = x.reshape(b, h * w, cin)
     gathered = torch.stack([_gather_rows(x_flat, flat)
@@ -132,8 +139,9 @@ def deform_im2col_plain(x: torch.Tensor, offset: torch.Tensor,
 
 def deform_im2col(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
                   *, stride: int = 1, padding: int = 1,
-                  kernel_size: int = 3) -> torch.Tensor:
-    """Deformable im2col, (B, Ho*Wo, K*Cin) in ``x.dtype``.
+                  kernel_size: int = 3, row0: int = 0) -> torch.Tensor:
+    """Deformable im2col, (B, Ho*Wo, K*Cin) in ``x.dtype``, for the output
+    rows ``row0..row0+Ho-1`` (a spatial rank's window).
 
     A CPU ``x`` goes to ``deform_im2col_plain``. A CUDA ``x`` goes to the
     kernel, which takes contiguous f32 or bf16 ``x`` with contiguous f32
@@ -143,10 +151,11 @@ def deform_im2col(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
     """
     if x.device.type == "cpu":
         return deform_im2col_plain(x, offset, mask, stride=stride,
-                                   padding=padding, kernel_size=kernel_size)
+                                   padding=padding, kernel_size=kernel_size,
+                                   row0=row0)
     if x.device.type != "cuda":
         raise ValueError(f"deform_im2col: unsupported device {x.device}")
-    _check_args(x, offset, mask, kernel_size)
+    _check_args(x, offset, mask, kernel_size, stride, padding, row0)
     if x.dtype not in _DTYPES:
         raise TypeError(f"deform_im2col: x must be f32 or bf16, not {x.dtype}")
     if offset.dtype != torch.float32 or mask.dtype != torch.float32:
@@ -171,7 +180,7 @@ def deform_im2col(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), offset.data_ptr(), mask.data_ptr(),
                  cols.data_ptr(), b, h, w, cin, ho, wo, kernel_size, stride,
-                 padding, stream)
+                 padding, row0, stream)
     cuda_build.check_launch(err, "dcn_im2col")
     deform_im2col.launches += 1
     deform_im2col.bf16_launches += x.dtype == torch.bfloat16
@@ -183,9 +192,10 @@ deform_im2col.bf16_launches = 0
 
 
 def _dcn_backward(x, offset, mask, weight, has_bias, dout, stride, padding,
-                  kernel_size, deterministic=False):
+                  kernel_size, deterministic=False, row0=0):
     """The analytic backward of ``deform_conv2d``, term by term the JAX
-    package's ``_dcn_bwd``, in f32: (dx, doffset, dmask, dweight, dbias)."""
+    package's ``_dcn_bwd``, in f32: (dx, doffset, dmask, dweight, dbias);
+    dx over the whole of ``x`` from the output rows of the window."""
     b, h, w, cin = x.shape
     _, ho, wo, _ = offset.shape
     k = kernel_size * kernel_size
@@ -199,7 +209,8 @@ def _dcn_backward(x, offset, mask, weight, has_bias, dout, stride, padding,
     # rather than saved (9x the input at every layer).
     x32 = x.float().contiguous()
     geom = dict(stride=stride, padding=padding, kernel_size=kernel_size)
-    samples = deform_im2col(x32, offset, torch.ones_like(mask), **geom)
+    samples = deform_im2col(x32, offset, torch.ones_like(mask), row0=row0,
+                            **geom)
     maskf = mask.float()
     cols = samples.reshape(b, p, k, cin) * maskf.reshape(b, p, k, 1)
     dweight = torch.matmul(cols.reshape(b * p, k * cin).t(),
@@ -211,7 +222,7 @@ def _dcn_backward(x, offset, mask, weight, has_bias, dout, stride, padding,
     # doffset: the bilinear weights' derivatives against the corner dots,
     # gated on in-bounds corners, not on weight > 0: at an integer sample
     # position a corner has weight 0 but a non-zero derivative.
-    sy, sx = _sample_positions(offset, stride, padding, kernel_size)
+    sy, sx = _sample_positions(offset, stride, padding, kernel_size, row0)
     y0, x0, fy, fx, corners = _corners(sy, sx, h, w)
     x_flat = x32.reshape(b, h * w, cin)
     d00, d01, d10, d11 = [
@@ -242,11 +253,12 @@ def _scatter_args(y0, x0, corners, vm, h, w):
 
 def scatter_inputs(offset: torch.Tensor, mask: torch.Tensor, h: int, w: int,
                    *, stride: int = 1, padding: int = 1,
-                   kernel_size: int = 3):
+                   kernel_size: int = 3, row0: int = 0):
     """(corner_idx, corner_w) that the backward of ``deform_conv2d`` hands
-    ``dcn_input_grad`` for these offsets and modulation on an HxW input."""
+    ``dcn_input_grad`` for these offsets and modulation on an HxW input
+    (output rows from ``row0``)."""
     b = offset.shape[0]
-    sy, sx = _sample_positions(offset, stride, padding, kernel_size)
+    sy, sx = _sample_positions(offset, stride, padding, kernel_size, row0)
     y0, x0, _, _, corners = _corners(sy, sx, h, w)
     return _scatter_args(y0, x0, corners, mask.float().reshape(b, -1), h, w)
 
@@ -258,17 +270,17 @@ class _DeformConv2d(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, offset, mask, weight, bias, stride, padding,
-                kernel_size, deterministic):
+                kernel_size, deterministic, row0):
         b, _, _, cin = x.shape
         _, ho, wo, _ = offset.shape
         k = kernel_size * kernel_size
         cols = deform_im2col(x, offset, mask, stride=stride, padding=padding,
-                             kernel_size=kernel_size)
+                             kernel_size=kernel_size, row0=row0)
         out = torch.matmul(cols, weight.reshape(k * cin, -1).to(x.dtype))
         if bias is not None:
             out = out + bias.to(out.dtype)
         ctx.save_for_backward(x, offset, mask, weight)
-        ctx.geometry = (stride, padding, kernel_size, deterministic)
+        ctx.geometry = (stride, padding, kernel_size, deterministic, row0)
         ctx.bias_dtype = None if bias is None else bias.dtype
         return out.reshape(b, ho, wo, -1)
 
@@ -281,25 +293,28 @@ class _DeformConv2d(torch.autograd.Function):
         return (dx.to(x.dtype), doffset.to(offset.dtype), dmask.to(mask.dtype),
                 dweight.to(weight.dtype),
                 None if dbias is None else dbias.to(ctx.bias_dtype),
-                None, None, None, None)
+                None, None, None, None, None)
 
 
 def deform_conv2d(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
                   weight: torch.Tensor, bias: Optional[torch.Tensor] = None,
                   *, stride: int = 1, padding: int = 1,
-                  kernel_size: int = 3, deterministic: bool = False
-                  ) -> torch.Tensor:
+                  kernel_size: int = 3, deterministic: bool = False,
+                  row0: int = 0) -> torch.Tensor:
     """Modulated deformable convolution, NHWC in and out, differentiable in
     every tensor argument; with ``deterministic`` its backward sums dx in
     a fixed order on the card.
 
     x (B, H, W, Cin); offset (B, Ho, Wo, 2K); mask (B, Ho, Wo, K);
     weight (kh, kw, Cin, Cout) HWIO; bias (Cout,) or None.
-    Returns (B, Ho, Wo, Cout) in ``x.dtype``.
+    Returns (B, Ho, Wo, Cout) in ``x.dtype``: the output rows
+    ``row0..row0+Ho-1`` of the convolution of the whole ``x`` (a spatial
+    rank's window: its samples may land on any row of ``x``, and dx
+    covers all of them).
     """
     cin = x.shape[-1]
     if tuple(weight.shape[:3]) != (kernel_size, kernel_size, cin):
         raise ValueError(f"weight {tuple(weight.shape)} is not HWIO for "
                          f"{kernel_size}x{kernel_size}x{cin}")
     return _DeformConv2d.apply(x, offset, mask, weight, bias, stride, padding,
-                               kernel_size, deterministic)
+                               kernel_size, deterministic, row0)

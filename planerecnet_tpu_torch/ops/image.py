@@ -9,7 +9,7 @@ keeps the public (B, H, W, 3) layout and ``point_sample_grid`` returns
 from __future__ import annotations
 
 import functools
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -76,29 +76,103 @@ def _resize_axis(x: torch.Tensor, dim: int, out_size: int) -> torch.Tensor:
             + x.index_select(dim, hi) * w_hi.to(x.dtype).view(view))
 
 
-def resize_bilinear(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
+def _nearest_sources(in_size: int, out_size: int) -> np.ndarray:
+    """The source index of each output of a nearest resize."""
+    return np.minimum((np.arange(out_size) * (in_size / out_size)).astype(
+        np.int64), in_size - 1)
+
+
+@functools.lru_cache(maxsize=256)
+def _window_taps(in_size: int, out_size: int, n: int, index: int,
+                 nearest: bool, device):
+    """Rank ``index`` of ``n`` row-sharded ranks' part of a resize of the
+    rows from ``in_size`` to ``out_size``: (above, below), the most rows
+    beyond its own shard that any rank's output rows read (every rank
+    exchanges as many), and its output rows' taps into its rows with that
+    halo, (lo, hi, w_lo, w_hi) on ``device`` (a nearest resize: lo
+    alone), the whole resize's. Cached per device, as ``_resize_taps``:
+    callers must not write into them."""
+    if nearest:
+        lo = hi = _nearest_sources(in_size, out_size)
+    else:
+        lo, hi, _ = _source_taps(in_size, out_size)
+    h, c = in_size // n, out_size // n
+    above = max(max(s * h - int(lo[s * c:(s + 1) * c].min()) for s in
+                    range(n)), 0)
+    below = max(max(int(hi[s * c:(s + 1) * c].max()) - ((s + 1) * h - 1)
+                    for s in range(n)), 0)
+    mine, x0 = slice(index * c, (index + 1) * c), index * h - above
+    taps = [torch.from_numpy(t[mine] - x0).to(device) for t in (lo, hi)]
+    if nearest:
+        return above, below, taps[0]
+    _, _, w_lo, w_hi = _resize_taps(in_size, out_size, device)
+    return above, below, *taps, w_lo[mine], w_hi[mine]
+
+
+def _resize_rows(x: torch.Tensor, out_h: int, rows, nearest: bool
+                 ) -> torch.Tensor:
+    """The row pass of a resize under a spatial context ``rows``
+    (``parallel/halo.py::Rows``): in the layout its rule gives the output.
+    A sharded map to a sharded output reads its neighbours' rows that its
+    output rows' taps reach (``halo_rows``), and computes its output rows
+    as the whole resize computes them; otherwise the map is made whole,
+    resized, and cut."""
+    g = rows.rows_of(x)
+    if g == out_h:
+        return x
+    first, count = rows.window(out_h)
+    window = None
+    if rows.sharded(x) and rows.splits(out_h):
+        window = _window_taps(g, out_h, rows.n, rows.mesh.spatial_index,
+                              nearest, x.device)
+    if window is None or max(window[:2]) > x.shape[-2]:
+        whole = rows.whole(x)
+        y = (whole.index_select(-2, torch.from_numpy(_nearest_sources(
+            g, out_h)).to(x.device)) if nearest
+            else _resize_axis(whole, -2, out_h))
+        return y[..., first:first + count, :] if rows.splits(out_h) else y
+    above, below, *taps = window
+    ext = rows.halo(x, above, below) if above or below else x
+    if nearest:
+        return ext.index_select(-2, taps[0])
+    lo, hi, w_lo, w_hi = taps
+    view = [1] * x.dim()
+    view[-2] = count
+    return (ext.index_select(-2, lo) * w_lo.to(x.dtype).view(view)
+            + ext.index_select(-2, hi) * w_hi.to(x.dtype).view(view))
+
+
+def resize_bilinear(x: torch.Tensor, size: Tuple[int, int],
+                    rows=None) -> torch.Tensor:
     """Bilinear resize of NCHW ``x`` to ``size=(H, W)``, rows then columns.
 
     Half-pixel convention with the source clamped to [0, in-1] and no
     antialiasing: the function of ``F.interpolate(align_corners=False)``,
-    with the JAX package's float64 sample positions.
+    with the JAX package's float64 sample positions. Under a spatial
+    context ``rows`` (``parallel/halo.py::Rows``), ``size`` is global and
+    ``x`` and the result are in the layout its rule gives them.
     """
     if not x.is_floating_point():
         x = x.float()
-    return _resize_axis(_resize_axis(x, -2, size[0]), -1, size[1])
+    if rows is None:
+        return _resize_axis(_resize_axis(x, -2, size[0]), -1, size[1])
+    return _resize_axis(_resize_rows(x, size[0], rows, False), -1, size[1])
 
 
-def resize_nearest(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
+def resize_nearest(x: torch.Tensor, size: Tuple[int, int],
+                   rows=None) -> torch.Tensor:
     """Nearest resize of NCHW ``x``, floor convention
     ``src = floor(dst * in / out)``, with the indices computed in float64
-    exactly as the JAX package does."""
-    h, w = x.shape[-2:]
+    exactly as the JAX package does; ``rows`` as ``resize_bilinear``."""
+    w = x.shape[-1]
     oh, ow = size
-    rows = np.minimum((np.arange(oh) * (h / oh)).astype(np.int64), h - 1)
-    cols = np.minimum((np.arange(ow) * (w / ow)).astype(np.int64), w - 1)
-    rows = torch.from_numpy(rows).to(x.device)
-    cols = torch.from_numpy(cols).to(x.device)
-    return x.index_select(-2, rows).index_select(-1, cols)
+    cols = torch.from_numpy(_nearest_sources(w, ow)).to(x.device)
+    if rows is None:
+        x = x.index_select(-2, torch.from_numpy(
+            _nearest_sources(x.shape[-2], oh)).to(x.device))
+    else:
+        x = _resize_rows(x, oh, rows, True)
+    return x.index_select(-1, cols)
 
 
 def upsample2x_nearest(x: torch.Tensor) -> torch.Tensor:
@@ -203,11 +277,18 @@ class _ReflectPad(torch.autograd.Function):
         return dx, None
 
 
-def reflect_pad(x: torch.Tensor, pad: int = 1) -> torch.Tensor:
+def reflect_pad(x: torch.Tensor, pad: int = 1, rows=None) -> torch.Tensor:
     """Reflection padding of the two spatial dims of NCHW ``x``: the
     values and gradients of ``F.pad(mode="reflect")``, with a backward
-    that is deterministic on the card too (``_ReflectPad``)."""
-    return _ReflectPad.apply(x, pad)
+    that is deterministic on the card too (``_ReflectPad``). Under a
+    spatial context ``rows`` (``parallel/halo.py::Rows``) a row-sharded
+    ``x`` takes its neighbours' rows inside the image and reflects at the
+    image's top and bottom only (``halo_rows``); the columns are
+    reflected as before."""
+    if rows is None or not rows.sharded(x):
+        return _ReflectPad.apply(x, pad)
+    ext = rows.halo(x, pad, pad, "reflect")
+    return _ReflectPad.apply(ext, pad)[..., pad:-pad, :]
 
 
 class ReflectPad2d(torch.nn.Module):
@@ -251,9 +332,15 @@ def fast_base_transform(images_bgr: torch.Tensor) -> torch.Tensor:
     return x.flip(-1)
 
 
-def point_sample_grid(h: int, w: int, device=None) -> torch.Tensor:
-    """Coord-conv channels in [-1, 1]: (h, w, 2), channel 0 = x, 1 = y."""
+def point_sample_grid(h: int, w: int, device=None,
+                      window: Optional[Tuple[int, int]] = None
+                      ) -> torch.Tensor:
+    """Coord-conv channels in [-1, 1]: (h, w, 2), channel 0 = x, 1 = y;
+    with ``window=(first, rows)`` only those rows of the h-row grid."""
     xs = torch.linspace(-1.0, 1.0, w, device=device)
     ys = torch.linspace(-1.0, 1.0, h, device=device)
+    if window is not None:
+        ys = ys[window[0]:window[0] + window[1]]
+        h = window[1]
     return torch.stack([xs[None, :].expand(h, w), ys[:, None].expand(h, w)],
                        dim=-1)

@@ -1,7 +1,8 @@
 """Local N-rank launcher for the port's train CLI.
 
 Counterpart of ``tools/run_multihost.py``: starts ``--nproc`` processes,
-each ``python -m planerecnet_tpu_torch.train --multihost`` with its own
+each ``python -m planerecnet_tpu_torch.train --multihost`` (or another
+module, ``launch(module=...)``) with its own
 rank, joined through a TCP store on a free localhost port
 (``parallel/spmd.py::initialize_distributed`` reads the ``PRN_*``
 variables set here). Each rank writes its own log; if one fails, the
@@ -62,8 +63,13 @@ def _wait(procs, timeout: Optional[float]) -> List[int]:
 def launch(nproc: int, train_args: List[str], platform: str = "cuda",
            backend: Optional[str] = None, log_dir: Optional[str] = None,
            timeout: Optional[float] = None,
-           extra_env: Optional[dict] = None) -> List[str]:
-    """Run the N-rank job; returns the per-rank log paths. ``extra_env``
+           extra_env: Optional[dict] = None,
+           module: str = "planerecnet_tpu_torch.train --multihost"
+           ) -> List[str]:
+    """Run the N-rank job; returns the per-rank log paths. Each rank runs
+    ``python -m`` ``module`` (the train CLI by default; the words after
+    the module's name come first among its arguments) with
+    ``train_args``. ``extra_env``
     is added to each rank's environment (the repository root goes in front
     of its ``PYTHONPATH``). Raises ``CalledProcessError`` when a rank fails
     and ``TimeoutExpired`` at ``timeout`` seconds, having stopped every
@@ -87,8 +93,8 @@ def launch(nproc: int, train_args: List[str], platform: str = "cuda",
             logs.append(osp.join(log_dir, f"worker{rank}.log"))
             files.append(open(logs[-1], "w"))
             procs.append(subprocess.Popen(
-                [sys.executable, "-u", "-m", "planerecnet_tpu_torch.train",
-                 "--multihost"] + list(train_args),
+                [sys.executable, "-u", "-m", *module.split()]
+                + list(train_args),
                 env=env, stdout=files[-1], stderr=subprocess.STDOUT))
         codes = _wait(procs, timeout)
     finally:
@@ -105,8 +111,7 @@ def launch(nproc: int, train_args: List[str], platform: str = "cuda",
                                       for line in f.readlines()[-12:])
     bad = [c for c in codes if c != 0]
     if bad:
-        raise subprocess.CalledProcessError(
-            bad[0], "planerecnet_tpu_torch.train --multihost")
+        raise subprocess.CalledProcessError(bad[0], module)
     return logs
 
 
@@ -118,14 +123,17 @@ def main(argv=None) -> None:
                    help="Default: NCCL on cuda, gloo on the CPU.")
     p.add_argument("--log_dir", default=None)
     p.add_argument("--timeout", type=float, default=None)
+    p.add_argument("--module", default="planerecnet_tpu_torch.train "
+                   "--multihost", help="what each rank runs with python -m")
     p.add_argument("train_args", nargs=argparse.REMAINDER,
-                   help="arguments after '--' go to the train CLI")
+                   help="arguments after '--' go to the module")
     args = p.parse_args(argv)
     train_args = args.train_args
     if train_args and train_args[0] == "--":
         train_args = train_args[1:]
     launch(args.nproc, train_args, platform=args.platform,
-           backend=args.backend, log_dir=args.log_dir, timeout=args.timeout)
+           backend=args.backend, log_dir=args.log_dir, timeout=args.timeout,
+           module=args.module)
     print("all workers completed")
 
 

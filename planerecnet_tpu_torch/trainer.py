@@ -31,6 +31,21 @@ summed over the ranks, each rank's losses are its share of the global
 losses (``compute_losses(mesh=...)``), BatchNorm trains on the global
 batch's statistics (``parallel.spmd.SyncBatchNorm2d``) unless frozen,
 and the losses returned, hence the non-finite skip, are the global ones.
+
+A mesh with a spatial axis (``make_mesh(n_spatial=...)``) makes it the
+2-D data x spatial step, the counterpart of ``jit_train_step(cfg, mesh,
+spatial=True)``: each rank takes its data index's images and its spatial
+index's rows of them (``parallel.mesh.local_rows``), the forward runs on
+the rows with the halo exchanges of ``parallel/halo.py``, and the
+predictions and the targets are gathered whole on every spatial rank for
+the losses, which every rank computes alike (the dice/lava kernels on the
+whole mask features, VNL on the whole depth). Each rank's loss is scaled
+by ``1 / n_spatial`` before the backward: the parts of the network that
+run whole then give each spatial rank a ``1 / n_spatial`` share of their
+gradient, and the row-sharded parts each rank's rows' share (the
+gathers' backward sums over the spatial ranks), so that the sum over all
+ranks that DDP takes is the global batch's gradient. Counts and the
+losses returned are summed over the data axis.
 """
 
 from __future__ import annotations
@@ -46,6 +61,7 @@ from planerecnet_tpu_torch.config import PlaneRecNetConfig
 from planerecnet_tpu_torch.losses import compute_losses
 from planerecnet_tpu_torch.models.planerecnet import PlaneRecNet
 from planerecnet_tpu_torch.ops.image import fast_base_transform
+from planerecnet_tpu_torch.parallel.halo import Rows, gather_rows
 from planerecnet_tpu_torch.parallel.mesh import Mesh, replicated
 from planerecnet_tpu_torch.parallel.spmd import convert_sync_batchnorm
 from planerecnet_tpu_torch.runner import resolve_device
@@ -93,7 +109,7 @@ class TrainState:
     step: int = 0        # every step taken
     updates: int = 0     # the steps whose update was applied
     deterministic: bool = False   # the kernels' fixed-order variants
-    mesh: Optional[Mesh] = None   # the data-parallel ranks
+    mesh: Optional[Mesh] = None   # the data (x spatial) ranks
     replica: Optional[nn.Module] = None   # ``model`` under DDP, with mesh
 
     @property
@@ -114,8 +130,8 @@ def create_train_state(cfg: PlaneRecNetConfig,
     """A model in train mode (fresh weights from ``seed``, or the JAX
     package's ``variables``, nested or flat), its optimizer and schedule.
     ``deterministic`` selects the kernels' fixed-order variants. A
-    ``mesh`` makes the state data-parallel on ``mesh.device`` (module
-    docstring), one rank included."""
+    ``mesh`` makes the state data-parallel, or data x spatial, on
+    ``mesh.device`` (module docstring), one rank included."""
     device = resolve_device(device if mesh is None else mesh.device)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
@@ -194,18 +210,27 @@ def grad_step(state: TrainState, batch: Mapping,
     """Forward, joint loss and backward; the gradients are left in the
     parameters' ``.grad``. Returns (the detached losses with ``total``, the
     BatchNorm running statistics as they were before the forward). With
-    a mesh the gradients and the losses are the global batch's."""
+    a mesh the gradients and the losses are the global batch's; with a
+    spatial axis ``batch`` holds this rank's rows (``local_rows``)."""
     batch = unpack_wire_batch(state.cfg, batch, state.device)
+    mesh, rows = state.mesh, None
+    if mesh is not None and mesh.n_spatial > 1:
+        image = batch["image"]
+        rows = Rows(mesh, image.shape[1] * mesh.n_spatial, image.shape[2])
+        with torch.no_grad():
+            for key, dim in (("depth", 1), ("masks", 2)):
+                batch[key] = gather_rows(batch[key], mesh, dim)
     saved = [buf.clone() for buf in _bn_buffers(state.model)]
     state.optimizer.zero_grad(set_to_none=True)
     net = state.model if state.replica is None else state.replica
-    preds = net(batch["image"])
+    preds = (net(batch["image"]) if rows is None
+             else net(batch["image"], spatial=rows))
     losses = compute_losses(state.cfg, preds, batch, vnl_indices=vnl_indices,
                             generator=state.generator(),
                             deterministic=state.deterministic,
-                            mesh=state.mesh)
+                            mesh=None if mesh is None else mesh.data_axis())
     total = sum(losses.values())
-    total.backward()
+    (total if rows is None else total / mesh.n_spatial).backward()
     losses = dict(losses, total=total)
     if state.mesh is not None:
         summed = state.mesh.all_sum(torch.stack(list(losses.values())))
