@@ -5,6 +5,7 @@
     python3 chip_smoke.py --dcn
     python3 chip_smoke.py --paths
     python3 chip_smoke.py --spatial
+    python3 chip_smoke.py --tools
 
 ``--dice`` runs phases 1, 2 and the timed dice/lava shapes of 4 alone and
 prints no result line; ``--dcn`` runs phases 1, 2, the im2col's serving
@@ -18,7 +19,9 @@ only ``PlaneRecNetRunner.infer`` and ``trainer.train_step``, so it runs on
 the trees of earlier slices too) and prints no result line.
 ``--spatial`` runs phases 1, 2, the spatial windows of 4, 15 and 16
 alone and prints no result line. ``--spatial_rank DIR`` is one rank of
-phases 15-16, which launch it.
+phases 15-16, which launch it. ``--tools`` runs phases 1, 2, 5 (for the
+request times that phase 18 checks against) and 18, on a tree of 8
+training frames of its own, and prints no result line.
 
 1. device: the card's name and power limit (nvidia-smi).
 2. build: one ``nvcc`` per source in ``planerecnet_tpu_torch/csrc/``
@@ -161,12 +164,28 @@ phases 15-16, which launch it.
    100%, one counted half by 50%); 26/13/4/4 launches a step on every
    rank; per-rank peak memory.
 
-17. with ``--profile DIR`` only: host-clocked stages of one request and a
-   ``torch.profiler`` trace of two requests and of two training steps,
-   by default and with ``--reproductablity``'s switches and variants
-   (kernel tables and busy shares printed, traces and tables written to
-   DIR; the traces come to more than the chip tool brings back, so give a
-   DIR outside ``chiprun_out/`` and copy the ``*_kernels.json`` tables).
+17. with ``--profile DIR`` only, last of all: ``tools/profile_inference.py``'s
+   stages of a request, ``tools/profile_train.py``'s stages of a
+   training step, and ``torch.profiler`` traces of two requests and of
+   two training steps, by default and with ``--reproductablity``'s
+   switches and variants (``tools/parse_trace.py``: kernel tables and
+   busy shares printed, traces and tables written to DIR; the traces are
+   large, the ``*_kernels.json`` tables small).
+18. the port's tools (``planerecnet_tpu_torch/tools/``) on the card: the
+   1x1 repair (the tiny preset's request and one step at 2x32x32, where
+   C5 is 1x1, and ``reflect_pad`` with an axis of one under the
+   deterministic switches against its CPU result in every bit); the C RLE
+   codec on every annotation of phase 9's tree (list and compressed
+   counts) against the numpy codec, the decode ms of both and its share
+   of the loader's read stage; ``profile_inference`` at PRN-50 1x and
+   8x480x640 (the whole request within phase 5's requests
+   +-``TOOLS_SERVE_BAND``); ``profile_train`` at PRN-50 8x640x640 for 5
+   steps with ``--split_timing`` and ``--trace``, then ``parse_trace`` on
+   that trace, which must show the im2col, scatter and dice/lava kernels
+   26/13/4/4 times a step; ``roofline`` on phase 5's and phase 7's
+   measured times (FLOPs, bytes and ``mfu`` of a request and a step);
+   ``bench_dice_kernel``, ``bench_optimizer`` (PRN-50) and
+   ``bench_dispatch`` at 5 iterations.
 
 Exits non-zero if any phase fails, and at once where there is no card.
 The last line is ``{"ok": true, "device": {...}}``; the line before it
@@ -188,11 +207,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
-F32_FLOPS_PER_S = 67e12        # H100 SXM, f32 outside the tensor cores
+from planerecnet_tpu_torch.tools.roofline import H100
+
+# The card's published peaks, the roofline tool's (H100 SXM data sheet).
+HBM_BYTES_PER_S = H100["hbm_bytes_per_s"]
+F32_FLOPS_PER_S = H100["float32"]
 # The dice/lava products run as three TF32 products each (3xTF32) on the
-# tensor cores, 495 TFLOP/s dense TF32 (H100 SXM data sheet).
-TF32X3_FLOPS_PER_S = 495e12 / 3
+# tensor cores.
+TF32X3_FLOPS_PER_S = H100["tf32"] / 3
 BATCH, HEIGHT, WIDTH = 8, 480, 640
 REQUESTS = 3
 DCN_LAYERS_PRN50 = 13
@@ -266,17 +288,10 @@ def det_twice(run, what):
 
 
 def cuda_time_ms(fn, iters=20, warmup=3):
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    """Mean ms of ``fn()`` on the card, between CUDA events
+    (``utils.timer.time_ms``)."""
+    from planerecnet_tpu_torch.utils.timer import time_ms
+    return time_ms(fn, "cuda", iters, warmup)
 
 
 def phase_device():
@@ -1083,7 +1098,7 @@ def phase_main(dcn, cfg, card):
         f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}; {card}")
     log(f"[main] {launches} kernel launches over {REQUESTS} requests; "
         f"valid detections {int(out['pred_valid'].sum())}")
-    return runner, launches, ms
+    return runner, launches, times
 
 
 # Raw predictions, CPU against card: f32 on both, summed in other orders
@@ -1825,125 +1840,59 @@ def phase_entry_points(card):
     return dcn.deform_im2col.launches
 
 
-def phase_profile(runner, out_dir):
-    """Where one request's time goes: host-clocked stages, then a
-    ``torch.profiler`` trace of two requests (device time by kernel, the
-    device's busy share of the wall time)."""
-    from torch.profiler import ProfilerActivity, profile
-    from planerecnet_tpu_torch.ops.image import fast_base_transform
-    from planerecnet_tpu_torch.ops.postprocess import postprocess_batch
-
-    batch = frames(BATCH, HEIGHT, WIDTH, seed=20)
-    stages = {"upload+transform": [], "forward": [], "postprocess": []}
-    with torch.no_grad():
-        for _ in range(4):
-            t0 = time.perf_counter()
-            x = fast_base_transform(runner._batch(batch))
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            preds = runner.model(x)
-            torch.cuda.synchronize()
-            t2 = time.perf_counter()
-            postprocess_batch(preds, runner.cfg, (HEIGHT, WIDTH))
-            torch.cuda.synchronize()
-            t3 = time.perf_counter()
-            for key, dt in zip(stages, (t1 - t0, t2 - t1, t3 - t2)):
-                stages[key].append(dt * 1e3)
-    log("[profile] host-clocked stages, ms (median of 3 after 1 warm-up): "
-        + json.dumps({k: float(np.median(v[1:])) for k, v in stages.items()}))
-
-    n = 2
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(n):
-            runner.infer(batch)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    profile_table(prof, n, "requests", out_dir, "request", wall_ms)
+def phase_profile(out_dir):
+    """Where one request's time goes: ``tools/profile_inference.py`` at
+    PRN-50, 8x480x640 (each stage timed with CUDA events, then a
+    ``torch.profiler`` trace of two requests, device time by kernel)."""
+    from planerecnet_tpu_torch.tools import parse_trace, profile_inference
+    res = profile_inference.main([
+        "--config", "PlaneRecNet_50_config", "--batch_size", str(BATCH),
+        "--height", str(HEIGHT), "--width", str(WIDTH), "--iters", "3",
+        "--trace", out_dir])
+    log("[profile] request stages, ms: " + json.dumps(res["stages_ms"]))
+    profile_log(parse_trace.summarize(parse_trace.load(res["trace"]), 2),
+                "requests", "request")
 
 
-def profile_table(prof, n, what, out_dir, stem, wall_ms):
-    """Print and save the device time by kernel of ``n`` profiled runs."""
-    import os
-    kernels = [e for e in prof.key_averages()
-               if e.device_type.name == "CUDA"]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    if busy_ms == 0:
+def profile_log(summary, what, stem):
+    """Print a ``parse_trace`` summary of the runs of ``what``."""
+    from planerecnet_tpu_torch.tools import parse_trace
+    if summary["busy_ms"] == 0:
         log(f"[profile] the profiler recorded no device time for {what}")
         return
-    kernels.sort(key=lambda e: -e.self_device_time_total)
-    rows = [{"kernel": e.key[:90], "calls": e.count // n,
-             f"ms_per_{stem}": e.self_device_time_total / 1e3 / n,
-             "share": e.self_device_time_total / 1e3 / busy_ms}
-            for e in kernels]
-    log(f"[profile] {n} {what}: wall {wall_ms / n:.3f} ms/{stem}, device "
-        f"busy {busy_ms / n:.3f} ms/{stem}, idle share "
-        f"{1 - busy_ms / wall_ms:.3f}")
-    for r in rows[:30]:
-        log(f"[profile] {r[f'ms_per_{stem}']:9.3f} ms {r['share']:6.1%} "
-            f"x{r['calls']:<4d} {r['kernel']}")
-    os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, f"profile_{stem}_kernels.json"), "w") as f:
-        json.dump({f"wall_ms_per_{stem}": wall_ms / n,
-                   f"busy_ms_per_{stem}": busy_ms / n, "kernels": rows}, f,
-                  indent=1)
-    prof.export_chrome_trace(os.path.join(out_dir, f"profile_{stem}.json"))
+    for line in parse_trace.lines(summary, 30):
+        log(f"[profile] {stem}: {line}")
 
 
-def phase_profile_train(state, batch, out_dir, stem="step"):
-    """Host-clocked stages of one training step, then a ``torch.profiler``
-    trace of two steps (tables and trace named by ``stem``)."""
-    from torch.profiler import ProfilerActivity, profile
+def phase_profile_train(cfg, batch, out_dir, stem="step",
+                        deterministic=False):
+    """One training step of ``cfg`` on ``batch`` through
+    ``tools/profile_train.py``: its stages each timed alone
+    (``split_timing``), then a ``torch.profiler`` trace of two steps
+    (``parse_trace.record``: tables and trace named by ``stem``), by
+    default or with the kernels' deterministic variants."""
     from planerecnet_tpu_torch import trainer
-    stages = {"unpack": [], "forward+loss": [], "backward": [], "adam": []}
-    for _ in range(3):
-        t0 = time.perf_counter()
-        dense = trainer.unpack_wire_batch(state.cfg, batch, state.device)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        saved = [b.clone() for b in trainer._bn_buffers(state.model)]
-        state.optimizer.zero_grad(set_to_none=True)
-        preds = state.model(dense["image"])
-        losses = trainer.compute_losses(state.cfg, preds, dense,
-                                        generator=state.generator(),
-                                        deterministic=state.deterministic)
-        total = sum(losses.values())
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        total.backward()
-        torch.cuda.synchronize()
-        t3 = time.perf_counter()
-        trainer.apply_grads(state, total.detach(), saved)
-        torch.cuda.synchronize()
-        t4 = time.perf_counter()
-        for key, dt in zip(stages, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
-            stages[key].append(dt * 1e3)
-    log(f"[profile] training {stem}, host-clocked stages, ms (median of 3): "
-        + json.dumps({k: float(np.median(v)) for k, v in stages.items()}))
-    n = 2
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(n):
-            trainer.train_step(state, batch)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    profile_table(prof, n, f"training steps ({stem})", out_dir, stem,
-                  wall_ms)
+    from planerecnet_tpu_torch.tools import parse_trace, profile_train
+    state = trainer.create_train_state(cfg, seed=0, device="cuda",
+                                       deterministic=deterministic)
+    perturb_(state.model, seed=1)
+    dense = trainer.unpack_wire_batch(cfg, batch, state.device)
+    trainer.train_step(state, dense)
+    log(f"[profile] training {stem}, stages each alone, ms (mean of 3): "
+        + json.dumps(profile_train.split_timing(state, [dense], 3)))
+    summary = parse_trace.record(lambda: trainer.train_step(state, dense), 2,
+                                 out_dir, stem, "cuda")
+    log(f"[profile] {stem}: wall {summary['wall_ms']:.3f} ms a step")
+    profile_log(summary, f"training steps ({stem})", stem)
 
 
 def profile_det_step(cfg, batch, out_dir):
     """``phase_profile_train`` of the same step with
     ``--reproductablity``'s switches and the kernels' variants."""
     from planerecnet_tpu_torch import train as train_cli
-    from planerecnet_tpu_torch import trainer
     with train_cli.reproducible_mode(True):
-        state = trainer.create_train_state(cfg, seed=0, device="cuda",
-                                           deterministic=True)
-        perturb_(state.model, seed=1)
-        trainer.train_step(state, batch)
-        phase_profile_train(state, batch, out_dir, stem="step_det")
+        phase_profile_train(cfg, batch, out_dir, stem="step_det",
+                            deterministic=True)
 
 
 # The bf16 gate of ``tests/test_bf16.py`` (the port's copy is in
@@ -2709,6 +2658,207 @@ def phase_spatial(card, work, backend="gloo"):
                for p in ("serve", "train")})
 
 
+# Phase 18. The whole request that ``profile_inference`` times (CUDA
+# events, its own seeded weights) must lie within phase 5's requests
+# (host clock, perturbed weights) widened by this share each way: phase
+# 5's three requests span a few ms, and requests of one tree have moved
+# by 10-25% between calls of one card (PERF.md).
+TOOLS_SERVE_BAND = 0.25
+TOOLS_ITERS = 5
+TOOLS_TRACE_STEPS = 3           # the steps ``profile_train --trace`` traces
+# The kernels that phase 18's traced step must show, by trace name, with
+# their counters' names.
+TOOLS_TRACE_KERNELS = {"dcn_im2col_kernel": "dcn_im2col",
+                       "dcn_scatter_kernel": "dcn_scatter",
+                       "dice_lava_fwd_kernel": "dice_lava_fwd",
+                       "dice_lava_bwd_kernel": "dice_lava_bwd"}
+ONE_BY_ONE = 32                 # the tiny preset's C5 is 1x1 at 32x32
+ONE_BY_ONE_PADS = ((2, 3, 1, 1), (1, 2, 1, 6), (1, 2, 5, 1))
+
+
+def check_one_by_one():
+    """The 1x1 repair on the card: the tiny preset's request and one
+    training step at 2x32x32, where C5 is 1x1 (the depth decoder's
+    reflection pad and the mask head's GroupNorm of one value a group),
+    then ``reflect_pad`` with an axis of one under ``--reproductablity``'s
+    switches against its own CPU result, values and gradients in every
+    bit."""
+    from planerecnet_tpu_torch import train as train_cli
+    from planerecnet_tpu_torch import trainer
+    from planerecnet_tpu_torch.config import PlaneRecNet_tiny_config
+    from planerecnet_tpu_torch.ops.image import reflect_pad
+    from planerecnet_tpu_torch.runner import PlaneRecNetRunner
+    from planerecnet_tpu_torch.tools.profile_train import synth_batch
+    cfg = PlaneRecNet_tiny_config.copy(dict(max_size=ONE_BY_ONE))
+    runner = PlaneRecNetRunner(cfg, seed=0, device="cuda")
+    out = runner.infer(frames(2, ONE_BY_ONE, ONE_BY_ONE, seed=30))
+    check_outputs(out, 2, ONE_BY_ONE, ONE_BY_ONE, cfg.solov2.top_k)
+    state = trainer.create_train_state(cfg, seed=0, device="cuda")
+    losses = trainer.train_step(state, synth_batch(cfg, 2, ONE_BY_ONE,
+                                                   ONE_BY_ONE))
+    if not all(torch.isfinite(v) for v in losses.values()):
+        raise AssertionError(f"1x1: step losses {losses}")
+    g = torch.Generator().manual_seed(6)
+    with train_cli.reproducible_mode(True):
+        for shape in ONE_BY_ONE_PADS:
+            x = torch.randn(shape, generator=g)
+            dy = torch.randn(*shape[:2], shape[2] + 2, shape[3] + 2,
+                             generator=g)
+            got = []
+            for dev in ("cuda", "cpu"):
+                t = x.to(dev).requires_grad_()
+                y = reflect_pad(t)
+                y.backward(dy.to(dev))
+                got.append((y.detach().cpu(), t.grad.cpu()))
+            for what, i in (("values", 0), ("gradient", 1)):
+                if not same_bits(got[0][i].contiguous(),
+                                 got[1][i].contiguous()):
+                    raise AssertionError(f"reflect_pad {what} at {shape} "
+                                         f"differ from the CPU's")
+    log(f"[tools] 1x1: the tiny preset's 2x{ONE_BY_ONE}x{ONE_BY_ONE} "
+        f"request and step on the card (losses "
+        f"{json.dumps({k: round(float(v), 4) for k, v in losses.items()})}"
+        f"); reflect_pad at {list(ONE_BY_ONE_PADS)} equals its CPU result "
+        f"in every bit under the deterministic switches")
+
+
+def check_rle(work):
+    """The C RLE codec on every annotation of the tree under ``work``
+    against the numpy codec, each annotation decoded from its list counts
+    and from the compressed string; the decode ms of both; and the C
+    decode's share of the loader's read stage (``host_stages``) for the
+    train split's batches."""
+    import os
+    from planerecnet_tpu_torch.config import PlaneRecNet_50_config
+    from planerecnet_tpu_torch.data import coco
+    root = os.path.join(work, "scannet")
+    anns = []
+    for name in sorted(os.listdir(root)):
+        if name.endswith(".json"):
+            with open(os.path.join(root, name)) as f:
+                anns += [(name, a) for a in json.load(f)["annotations"]]
+    segs = [a["segmentation"] for _, a in anns]
+    segs += [{"size": s["size"], "counts": coco._encode_rle_counts(
+        s["counts"])} for s in segs]
+    times = {}
+    for codec, fn in (("c", coco.rle_to_mask),
+                      ("numpy", coco.rle_to_mask_plain)):
+        t0 = time.perf_counter()
+        masks = [fn(s) for s in segs]
+        times[codec] = (time.perf_counter() - t0) * 1e3
+        if codec == "c":
+            c_masks = masks
+    differ = sum(not np.array_equal(a, b) for a, b in zip(c_masks, masks))
+    if differ:
+        raise AssertionError(f"RLE: {differ} of {len(segs)} masks differ "
+                             f"between the C and the numpy codec")
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        stages = host_stages(PlaneRecNet_50_config, n_batches=1)
+        train = [a for n, a in anns if n == "scannet_train.json"]
+        by_image = {}
+        for a in train:
+            by_image.setdefault(a["image_id"], []).append(a["segmentation"])
+        batch = [s for i in sorted(by_image)[:BATCH] for s in by_image[i]]
+        t0 = time.perf_counter()
+        for s in batch:
+            coco.rle_to_mask(s)
+        decode_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        os.chdir(cwd)
+    log(f"[tools] RLE: {len(segs)} masks ({len(anns)} annotations, list "
+        f"and compressed counts) equal between the codecs; decode "
+        f"{times['c']:.3f} ms (C) against {times['numpy']:.3f} ms (numpy) "
+        f"in all; one batch of {BATCH} train images: {len(batch)} masks "
+        f"decoded in {decode_ms:.3f} ms, {decode_ms / stages['read']:.4f} "
+        f"of its {stages['read']:.3f} ms read stage")
+    return dict(times, read_ms=stages["read"], batch_decode_ms=decode_ms)
+
+
+def phase_tools(card, work, request_ms, train_ms=None):
+    """Phase 18: the port's tools on the card (module docstring). Returns
+    the launches of the phase by kernel."""
+    import os
+    from planerecnet_tpu_torch.tools import (bench_dice_kernel,
+                                             bench_dispatch, bench_optimizer,
+                                             parse_trace, profile_inference,
+                                             profile_train, roofline)
+    t0 = time.perf_counter()
+    zero_counts()
+    check_one_by_one()
+    check_rle(work)
+    prn50 = ["--config", "PlaneRecNet_50_config"]
+    serve = {}
+    for b in (1, BATCH):
+        serve[b] = profile_inference.main(prn50 + [
+            "--batch_size", str(b), "--height", str(HEIGHT), "--width",
+            str(WIDTH), "--iters", str(TOOLS_ITERS)])
+        log(f"[tools] profile_inference {b}x{HEIGHT}x{WIDTH}: "
+            f"{json.dumps(serve[b]['stages_ms'])}")
+    lo = min(request_ms) * (1 - TOOLS_SERVE_BAND)
+    hi = max(request_ms) * (1 + TOOLS_SERVE_BAND)
+    infer_ms = serve[BATCH]["stages_ms"]["infer"]
+    if not lo <= infer_ms <= hi:
+        raise AssertionError(f"profile_inference: a request {infer_ms:.3f} "
+                             f"ms, outside {lo:.3f}-{hi:.3f} (phase 5's "
+                             f"{request_ms} +-{TOOLS_SERVE_BAND:.0%})")
+    trace_dir = os.path.join(work, "tools_trace")
+    step = profile_train.main(prn50 + [
+        "--batch_size", str(BATCH), "--size", str(TRAIN_SIZE), "--iters",
+        str(TOOLS_ITERS), "--warmup", "1", "--split_timing", "--trace",
+        trace_dir])
+    log(f"[tools] profile_train: {step['value']:.3f} ms/step, stages "
+        f"{json.dumps(step['split_ms'])}, peak {step['peak_gib']} GiB")
+    summary = parse_trace.main([trace_dir, "--runs", str(TOOLS_TRACE_STEPS),
+                                "--top", "30"])
+    per_step = launches_per_step(deterministic=False)
+    names = [k["kernel"] for k in summary["kernels"]]
+    for kernel, counter in TOOLS_TRACE_KERNELS.items():
+        calls = parse_trace.calls_of(summary, kernel)
+        rank = next((i for i, n in enumerate(names) if kernel in n), None)
+        log(f"[tools] parse_trace: {kernel} x{calls:g} a step, rank "
+            f"{rank} of {len(names)} by device time")
+        if calls != per_step[counter]:
+            raise AssertionError(f"parse_trace: {kernel} {calls} calls a "
+                                 f"step, expected {per_step[counter]}")
+    roof = roofline.main(prn50 + [
+        "--imgs_per_s", str(BATCH / float(np.median(request_ms)) * 1e3),
+        "--train", "--train_ms", str(train_ms or step["value"])])
+    log("[tools] roofline: " + "; ".join(
+        f"{what} {roof[what]['flops'] / 1e9:.2f} GFLOP and "
+        f"{roof[what]['bytes'] / 1e6:.1f} MB a{'n image' if what == 'request' else ' step'}"
+        f", mfu {roof[what].get('mfu')}, hbm_share "
+        f"{roof[what].get('hbm_share')}" for what in ("request", "step"))
+        + f"; {card}")
+    bench_dice_kernel.main(["--iters", str(TOOLS_ITERS)])
+    bench_optimizer.main(prn50 + ["--iters", str(TOOLS_ITERS)])
+    bench_dispatch.main(["--iters", str(TOOLS_ITERS)])
+    launches = read_counts()
+    log(f"[tools] phase 18 in {time.perf_counter() - t0:.1f} s; launches "
+        f"{json.dumps(launches)}")
+    return launches
+
+
+def tools_alone(card):
+    """``--tools``: phase 18 on its own, with phase 5's requests and a
+    synthetic tree of 8 training frames."""
+    from planerecnet_tpu_torch.config import PlaneRecNet_50_config
+    from planerecnet_tpu_torch.ops import dcn
+    from planerecnet_tpu_torch.tools import synth_scenes
+    torch.backends.cudnn.allow_tf32 = True      # as in phases 5 and 7
+    runner, _, request_ms = phase_main(dcn, PlaneRecNet_50_config, card)
+    del runner
+    torch.cuda.empty_cache()
+    work = tempfile.mkdtemp(prefix="prn_tools_")
+    try:
+        synth_scenes.generate_dataset(work, BATCH, 0, 0, h=HEIGHT, w=WIDTH,
+                                      seed=0, progress=False)
+        phase_tools(card, work, request_ms)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 PATHS_REPEATS = 10
 
 
@@ -2766,6 +2916,9 @@ def main():
         time_paths(card)
         return 0
     phase_build()
+    if "--tools" in sys.argv:
+        tools_alone(card)
+        return 0
     if "--spatial" in sys.argv:
         spatial_window_cases(dcn)
         work = tempfile.mkdtemp(prefix="prn_spatial_")
@@ -2810,7 +2963,8 @@ def main():
     phase_dcn_grads()
     check_reflect_pad()
     torch.backends.cudnn.allow_tf32 = True      # PyTorch's default
-    runner, infer_launches, _ = phase_main(dcn, PlaneRecNet_50_config, card)
+    runner, infer_launches, request_ms = phase_main(
+        dcn, PlaneRecNet_50_config, card)
     phase_cpu_vs_gpu(runner, PlaneRecNet_50_config)
     del runner
     state, batch, launches, train_ms, train_peak = phase_train(train_cfg,
@@ -2827,16 +2981,15 @@ def main():
         dp_ranks, dp_one = phase_dp(card, work)
         phase_check_dataset(work)
         spatial = phase_spatial(card, work)
+        torch.cuda.empty_cache()
+        tools = phase_tools(card, work, request_ms, train_ms)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     if "--profile" in sys.argv:
         out_dir = sys.argv[sys.argv.index("--profile") + 1]
-        phase_profile_train(state, batch, out_dir)
+        phase_profile_train(train_cfg, batch, out_dir)
         profile_det_step(train_cfg, batch, out_dir)
-        from planerecnet_tpu_torch.runner import PlaneRecNetRunner
-        runner = PlaneRecNetRunner(PlaneRecNet_50_config, device="cuda")
-        perturb_(runner.model, seed=1)
-        phase_profile(runner, out_dir)
+        phase_profile(out_dir)
 
     def bound_by(recs):
         return ("bytes" if all(r["bound_by"] == "bytes" for r in recs)
@@ -2846,14 +2999,16 @@ def main():
                  f"{TRAIN_SIZE}x{TRAIN_SIZE}, f32")
 
     def new_paths(name):
-        """This kernel's launches on the paths of phases 11-13 and 15-16:
-        one bf16 request, the bf16 training phase's timed steps, each
-        data-parallel rank's run and the one-process twin's, and each
-        spatial rank's timed requests and steps and the unsplit rank's."""
+        """This kernel's launches on the paths of phases 11-13, 15-16 and
+        18: one bf16 request, the bf16 training phase's timed steps, each
+        data-parallel rank's run and the one-process twin's, each spatial
+        rank's timed requests and steps and the unsplit rank's, and the
+        tools' runs."""
         return {"serve_bf16": serve_bf16[name], "train_bf16": train_bf16[name],
                 **{f"dp_rank{r}": n[name] for r, n in enumerate(dp_ranks)},
                 "dp_one_process": dp_one[name],
-                **{path: n[name] for path, n in spatial.items()}}
+                **{path: n[name] for path, n in spatial.items()},
+                "tools": tools[name]}
     def dice_row(d, det):
         name = f"dice_lava_{d}" + ("_det" if det else "")
         key = "det_" if det else ""

@@ -54,15 +54,11 @@ def parse_args(argv=None):
     return parser.parse_args(argv)
 
 
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
 def main(argv=None) -> dict:
     args = parse_args(argv)
     from planerecnet_tpu_torch.config import set_cfg
     from planerecnet_tpu_torch.runner import PlaneRecNetRunner
+    from planerecnet_tpu_torch.utils.timer import sync
 
     cfg = set_cfg(args.config)
     if args.dtype:
@@ -88,12 +84,12 @@ def main(argv=None) -> dict:
     # the pipeline, not the copies of the inputs.
     device_frames = [torch.from_numpy(f).to(net.device) for f in frames]
     net.infer(device_frames[-1])
-    _sync(net.device)
+    sync(net.device)
 
     t0 = time.perf_counter()
     for f in device_frames:
         net.infer(f)
-    _sync(net.device)
+    sync(net.device)
     dt = time.perf_counter() - t0
     imgs_per_sec = args.batch_size * args.iters / dt
 

@@ -1,9 +1,11 @@
 """COCO-format annotations: the JSON index, the RLE codec and polygon masks.
 
 Counterpart of ``planerecnet_tpu/data/coco.py`` (a stand-in for
-``pycocotools``). The RLE codec is numpy here; the JAX package's C helper
-(``native/rle_native.py``) has no counterpart yet. Polygons are rasterised
-by ``image_io.fill_poly``, which draws as ``cv2.fillPoly`` does.
+``pycocotools``). ``rle_to_mask`` and ``mask_to_rle`` run the C codec
+(``native/rle.c``, built at first use), with no fallback; the numpy codec
+beside them (``rle_to_mask_plain``, ``mask_to_rle_plain``) is its plain
+version. Polygons are rasterised by ``image_io.fill_poly``, which draws as
+``cv2.fillPoly`` does.
 """
 
 from __future__ import annotations
@@ -15,6 +17,9 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from planerecnet_tpu_torch.data.image_io import fill_poly
+from planerecnet_tpu_torch.native import (rle_decode_counts_native,
+                                          rle_encode_mask_native,
+                                          rle_fill_native)
 
 
 def _decode_rle_counts(s: str) -> List[int]:
@@ -62,8 +67,24 @@ def _encode_rle_counts(counts) -> str:
 
 def rle_to_mask(rle: Dict) -> np.ndarray:
     """Decode an RLE segmentation dict, compressed (str counts) or not
-    (list counts), to a (H, W) uint8 mask. COCO RLE is column-major:
-    counts alternate runs of 0s and 1s down the columns."""
+    (list counts), to a (H, W) uint8 mask with the C codec. COCO RLE is
+    column-major: counts alternate runs of 0s and 1s down the columns."""
+    h, w = rle["size"]
+    counts = rle["counts"]
+    if isinstance(counts, (bytes, str)):
+        counts = rle_decode_counts_native(counts)
+    return rle_fill_native(counts, h, w)
+
+
+def mask_to_rle(mask: np.ndarray) -> Dict:
+    """Encode a (H, W) binary mask as uncompressed column-major RLE with
+    the C codec."""
+    h, w = mask.shape
+    return {"size": [h, w], "counts": rle_encode_mask_native(mask)}
+
+
+def rle_to_mask_plain(rle: Dict) -> np.ndarray:
+    """``rle_to_mask`` in numpy: the C codec's plain version."""
     h, w = rle["size"]
     counts = rle["counts"]
     if isinstance(counts, (bytes, str)):
@@ -78,8 +99,8 @@ def rle_to_mask(rle: Dict) -> np.ndarray:
     return flat.reshape(w, h).T  # column-major -> (H, W)
 
 
-def mask_to_rle(mask: np.ndarray) -> Dict:
-    """Encode a (H, W) binary mask as uncompressed column-major RLE."""
+def mask_to_rle_plain(mask: np.ndarray) -> Dict:
+    """``mask_to_rle`` in numpy: the C codec's plain version."""
     h, w = mask.shape
     flat = np.asfortranarray(mask.astype(np.uint8)).reshape(-1, order="F")
     # run-length encode, starting with a (possibly zero-length) 0-run.

@@ -44,10 +44,33 @@ class BatchNorm2d(nn.BatchNorm2d):
 
 
 class GroupNorm(nn.GroupNorm):
-    """``nn.GroupNorm`` in f32 whatever its input's type."""
+    """``nn.GroupNorm`` in f32 whatever its input's type. A group of one
+    value (a 1x1 map with one channel a group) is flax's: ``_group_norm``
+    gives its bias, where torch's kernel normalises the rounding noise of
+    ``x - mean`` (and its functional check refuses a batch of one)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return super().forward(x.float())
+        x = x.float()
+        if x[0].numel() == self.num_groups:
+            return _group_norm(self, x)
+        return super().forward(x)
+
+
+def _group_norm(m: nn.GroupNorm, x: torch.Tensor, rows=None
+                ) -> torch.Tensor:
+    """GroupNorm of NCHW ``x`` in f32 with its statistics computed here:
+    the mean, then the variance about it, each over the (image, group)'s
+    count, summed over the spatial ranks of ``rows`` where it is given."""
+    x = x.float()
+    b, c = x.shape[:2]
+    xg = x.reshape(b, m.num_groups, -1)
+    total = (lambda t: t) if rows is None else rows.sum
+    n = xg.shape[-1] * (1 if rows is None else rows.n)
+    mean = total(xg.sum(-1)) / n
+    d = xg - mean[..., None]
+    var = total((d * d).sum(-1)) / n
+    y = (d * torch.rsqrt(var + m.eps)[..., None]).reshape(x.shape)
+    return y * m.weight.view(1, c, 1, 1) + m.bias.view(1, c, 1, 1)
 
 
 class ReflectConvBNReLU(nn.Sequential):
@@ -125,15 +148,7 @@ def group_norm(m: nn.GroupNorm, x: torch.Tensor, rows=None) -> torch.Tensor:
     then the variance about it, each over the whole map's count, in f32."""
     if rows is None or not rows.sharded(x):
         return m(x)
-    x = x.float()
-    b, c = x.shape[:2]
-    xg = x.reshape(b, m.num_groups, -1)
-    n = xg.shape[-1] * rows.n
-    mean = rows.sum(xg.sum(-1)) / n
-    d = xg - mean[..., None]
-    var = rows.sum((d * d).sum(-1)) / n
-    y = (d * torch.rsqrt(var + m.eps)[..., None]).reshape(x.shape)
-    return y * m.weight.view(1, c, 1, 1) + m.bias.view(1, c, 1, 1)
+    return _group_norm(m, x, rows)
 
 
 def run_rows(seq: nn.Sequential, x: torch.Tensor, rows=None) -> torch.Tensor:

@@ -181,7 +181,10 @@ def upsample2x_nearest(x: torch.Tensor) -> torch.Tensor:
 
 
 def _reflect_sources(n: int, pad: int) -> np.ndarray:
-    """The input index that each of the n + 2 pad outputs copies."""
+    """The input index that each of the n + 2 pad outputs copies; an axis
+    of one repeats it, as ``np.pad(mode="reflect")`` does."""
+    if n == 1:
+        return np.zeros(1 + 2 * pad, np.int64)
     o = np.abs(np.arange(-pad, n + pad))
     return np.where(o > n - 1, 2 * (n - 1) - o, o)
 
@@ -238,7 +241,8 @@ class _ReflectPad(torch.autograd.Function):
     with atomics, and PyTorch's deterministic mode refuses it. Most pixels
     have one such output, a copy; only the strips beside the border add
     more, the rows' and the columns' each gathered in one index_select and
-    written by slices."""
+    written by slices. An axis of length 1, which ``F.pad`` refuses, is
+    repeated: its pad rows or columns copy it."""
 
     @staticmethod
     def forward(ctx, x, pad):
@@ -250,7 +254,13 @@ class _ReflectPad(torch.autograd.Function):
                       and not x.is_contiguous()
                       and x.is_contiguous(memory_format=torch.channels_last)
                       else torch.contiguous_format)
-        return F.pad(x, (pad,) * 4, mode="reflect")
+        h, w = ctx.hw
+        if min(h, w) > 1:
+            return F.pad(x, (pad,) * 4, mode="reflect")
+        for dim, n in ((-2, h), (-1, w)):
+            x = x.index_select(dim, torch.from_numpy(
+                _reflect_sources(n, pad)).to(x.device))
+        return x.contiguous(memory_format=ctx.layout)
 
     @staticmethod
     def backward(ctx, g):

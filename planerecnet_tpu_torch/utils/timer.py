@@ -151,3 +151,35 @@ class env:
     def __exit__(self, e, ev, t):
         payload = self.sync() if callable(self.sync) else self.sync
         stop(self.fn_name, use_stack=self.use_stack, sync=payload)
+
+
+def sync(device) -> None:
+    """Wait for the work queued on ``device`` where it is a CUDA device."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def time_ms(fn, device, iters: int = 20, warmup: int = 3) -> float:
+    """Mean ms of ``fn()`` over ``iters`` calls after ``warmup``: on a CUDA
+    ``device``, CUDA events recorded before the first call and after the
+    last (the device's time for the queued work); on the CPU, the host
+    clock."""
+    device = torch.device(device)
+    for _ in range(warmup):
+        fn()
+    sync(device)
+    if device.type != "cuda":
+        t0 = _now()
+        for _ in range(iters):
+            fn()
+        return (_now() - t0) * 1e3 / iters
+    stream = torch.cuda.current_stream(device)
+    start_ev = torch.cuda.Event(enable_timing=True)
+    end_ev = torch.cuda.Event(enable_timing=True)
+    start_ev.record(stream)
+    for _ in range(iters):
+        fn()
+    end_ev.record(stream)
+    torch.cuda.synchronize(device)
+    return start_ev.elapsed_time(end_ev) / iters

@@ -77,7 +77,9 @@ def test_reflect_pad_wider_equals_f_pad_exactly(shape, pad):
     np.testing.assert_array_equal(bits(a.grad), bits(b.grad))
 
 
-@pytest.mark.parametrize("shape", [(2, 3, 5, 7), (1, 8, 40, 40)])
+@pytest.mark.parametrize("shape", [(2, 3, 5, 7), (1, 8, 40, 40),
+                                   # an axis of one, which F.pad refuses
+                                   (2, 3, 1, 1), (1, 2, 1, 6), (1, 2, 5, 1)])
 def test_reflect_pad_matches_jnp_pad(shape):
     rng = np.random.RandomState(7)
     x = rng.randn(*shape).astype(np.float32)

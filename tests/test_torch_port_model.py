@@ -113,11 +113,11 @@ def jax_variables(jcfg, seed=0):
 
 
 @functools.lru_cache(maxsize=None)
-def jax_forward(name, seed=1):
-    """One JAX apply at 64^2 of preset ``name``: (input, backbone C2..C5,
+def jax_forward(name, seed=1, size=64):
+    """One JAX apply at size^2 of preset ``name``: (input, backbone C2..C5,
     raw-pred dict), numpy."""
-    jcfg = jconfig.get_cfg(name).copy(dict(max_size=64))
-    x = images(seed=seed)
+    jcfg = jconfig.get_cfg(name).copy(dict(max_size=size))
+    x = images(size=size, seed=seed)
     preds, state = JaxPlaneRecNet(jcfg).apply(
         nest(jax_variables(jcfg)), jnp.asarray(x), train=False,
         capture_intermediates=lambda mdl, method: (mdl.name == "backbone"
@@ -206,11 +206,16 @@ def test_backbone_matches_jax(name):
                                    err_msg=f"C{i + 2}", **TOL)
 
 
-@pytest.mark.parametrize("name", ["PlaneRecNet_tiny_config",
-                                  "PlaneRecNet_50_config"])
-def test_raw_preds_match_jax(name):
-    jcfg = jconfig.get_cfg(name).copy(dict(max_size=64))
-    x, _, want = jax_forward(name)
+@pytest.mark.parametrize("name,size", [
+    pytest.param("PlaneRecNet_tiny_config", 64, id="PlaneRecNet_tiny_config"),
+    pytest.param("PlaneRecNet_50_config", 64, id="PlaneRecNet_50_config"),
+    # C5 is 1x1 at 32^2: the depth decoder's reflection pad repeats its one
+    # row and column, and a GroupNorm of one value gives its bias.
+    pytest.param("PlaneRecNet_tiny_config", 32,
+                 id="PlaneRecNet_tiny_config-32x32")])
+def test_raw_preds_match_jax(name, size):
+    jcfg = jconfig.get_cfg(name).copy(dict(max_size=size))
+    x, _, want = jax_forward(name, size=size)
     port = port_model(jcfg, jax_variables(jcfg))
     with torch.no_grad():
         got = port(torch.from_numpy(x))

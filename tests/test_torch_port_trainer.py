@@ -54,26 +54,27 @@ LEAF_TOL = 2e-4
 TRAJECTORY_TOL = dict(rtol=1e-3, atol=1e-6)
 
 
-def _cfg(**kw):
+def _cfg(size=SIZE, **kw):
     """The tiny preset with a schedule that moves the weights: no warm-up,
     lr 1e-3."""
     return PlaneRecNet_tiny_config.copy(dict(
-        max_size=SIZE, lr=1e-3, lr_warmup_until=0, **kw))
+        max_size=size, lr=1e-3, lr_warmup_until=0, **kw))
 
 
-def _batch(seed=0):
-    batch = _tiny_batch(2, SIZE, SIZE)
-    batch["masks"][1, 1, 30:60, 10:50] = 1
-    batch["boxes"][1, 1] = [10, 30, 50, 60]
+def _batch(seed=0, size=SIZE):
+    batch = _tiny_batch(2, size, size)
+    x0, y0, x1, y1 = (np.array([10, 30, 50, 60]) * size) // SIZE
+    batch["masks"][1, 1, y0:y1, x0:x1] = 1
+    batch["boxes"][1, 1] = [x0, y0, x1, y1]
     batch["gt_valid"][1, 1] = True
     batch["image"] = np.random.RandomState(seed).randn(
-        2, SIZE, SIZE, 3).astype(np.float32)
+        2, size, size, 3).astype(np.float32)
     return batch
 
 
 def _jax_state(cfg, flat, per_module_lr=False):
     state = jtrainer.create_train_state(cfg, jax.random.PRNGKey(0),
-                                        input_shape=(SIZE, SIZE),
+                                        input_shape=(cfg.max_size,) * 2,
                                         per_module_lr=per_module_lr)
     tree = nest(flat)
     return state.replace(params=tree["params"],
@@ -169,14 +170,18 @@ def test_unpack_wire_batch_matches_jax(sparse):
         np.testing.assert_array_equal(got[key].numpy(), np.asarray(want[key]))
 
 
-@pytest.mark.parametrize("freeze_bn", [True, False])
-def test_train_step_losses_and_grads_match_jax(freeze_bn):
+@pytest.mark.parametrize("freeze_bn,size", [
+    pytest.param(True, SIZE, id="True"), pytest.param(False, SIZE, id="False"),
+    # C5 is 1x1 at 32^2 (the reflection pad's and GroupNorm's one-value
+    # cases, forward and backward).
+    pytest.param(True, 32, id="True-32x32")])
+def test_train_step_losses_and_grads_match_jax(freeze_bn, size):
     """One step of the tiny model on the same weights and batch: every
     loss and the BatchNorm running statistics after the step; with
     ``freeze_bn``, every gradient (in the JAX layout)."""
-    cfg = _cfg(freeze_bn=freeze_bn)
+    cfg = _cfg(size, freeze_bn=freeze_bn)
     flat = jax_variables(cfg)
-    batch = _batch(seed=2)
+    batch = _batch(seed=2, size=size)
     jstate = _jax_state(cfg, flat)
     grads, new_bs, want = jax.jit(functools.partial(
         jtrainer.grad_step, cfg=cfg))(jstate, dict(batch))
