@@ -164,9 +164,9 @@ training frames of its own, and prints no result line.
    100%, one counted half by 50%); 26/13/4/4 launches a step on every
    rank; per-rank peak memory.
 
-17. with ``--profile DIR`` only, last of all: ``tools/profile_inference.py``'s
-   stages of a request, ``tools/profile_train.py``'s stages of a
-   training step, and ``torch.profiler`` traces of two requests and of
+17. with ``--profile DIR`` only, last of all, with phase 5's weights:
+   ``tools/profile_inference.py``'s stages of a request,
+   ``tools/profile_train.py``'s stages of a training step, and ``torch.profiler`` traces of two requests and of
    two training steps, by default and with ``--reproductablity``'s
    switches and variants (``tools/parse_trace.py``: kernel tables and
    busy shares printed, traces and tables written to DIR; the traces are
@@ -177,7 +177,9 @@ training frames of its own, and prints no result line.
    deterministic switches against its CPU result in every bit); the C RLE
    codec on every annotation of phase 9's tree (list and compressed
    counts) against the numpy codec, the decode ms of both and its share
-   of the loader's read stage; ``profile_inference`` at PRN-50 1x and
+   of the loader's read stage; with phase 5's weights (``perturb_``
+   seed 1, through the tools' ``set_weights``), ``profile_inference`` at
+   PRN-50 1x and
    8x480x640 (the whole request within phase 5's requests
    +-``TOOLS_SERVE_BAND``); ``profile_train`` at PRN-50 8x640x640 for 5
    steps with ``--split_timing`` and ``--trace``, then ``parse_trace`` on
@@ -207,9 +209,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from planerecnet_tpu_torch.tools.roofline import H100
+from planerecnet_tpu_torch.tools.roofline import PEAKS
 
 # The card's published peaks, the roofline tool's (H100 SXM data sheet).
+H100 = PEAKS["NVIDIA H100"]
 HBM_BYTES_PER_S = H100["hbm_bytes_per_s"]
 F32_FLOPS_PER_S = H100["float32"]
 # The dice/lava products run as three TF32 products each (3xTF32) on the
@@ -288,10 +291,17 @@ def det_twice(run, what):
 
 
 def cuda_time_ms(fn, iters=20, warmup=3):
-    """Mean ms of ``fn()`` on the card, between CUDA events
-    (``utils.timer.time_ms``)."""
-    from planerecnet_tpu_torch.utils.timer import time_ms
-    return time_ms(fn, "cuda", iters, warmup)
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
 
 
 def phase_device():
@@ -1047,6 +1057,12 @@ def perturb_(model, seed, offset_std=0.01):
                                                  generator=g) * 0.5)
                 m.running_var.copy_(0.5 + torch.rand(m.running_var.shape,
                                                      generator=g) * 1.5)
+
+
+def phase5_weights(model):
+    """The perturbation of phases 5 and 7's models (``perturb_`` seed 1),
+    for the tools that build their own from seed 0."""
+    perturb_(model, seed=1)
 
 
 def frames(n, h, w, seed):
@@ -1848,7 +1864,7 @@ def phase_profile(out_dir):
     res = profile_inference.main([
         "--config", "PlaneRecNet_50_config", "--batch_size", str(BATCH),
         "--height", str(HEIGHT), "--width", str(WIDTH), "--iters", "3",
-        "--trace", out_dir])
+        "--trace", out_dir], set_weights=phase5_weights)
     log("[profile] request stages, ms: " + json.dumps(res["stages_ms"]))
     profile_log(parse_trace.summarize(parse_trace.load(res["trace"]), 2),
                 "requests", "request")
@@ -2659,10 +2675,10 @@ def phase_spatial(card, work, backend="gloo"):
 
 
 # Phase 18. The whole request that ``profile_inference`` times (CUDA
-# events, its own seeded weights) must lie within phase 5's requests
-# (host clock, perturbed weights) widened by this share each way: phase
-# 5's three requests span a few ms, and requests of one tree have moved
-# by 10-25% between calls of one card (PERF.md).
+# events, phase 5's weights) must lie within phase 5's requests (host
+# clock) widened by this share each way: phase 5's three requests span a
+# few ms, and requests of one tree have moved by 10-25% between calls of
+# one card (PERF.md).
 TOOLS_SERVE_BAND = 0.25
 TOOLS_ITERS = 5
 TOOLS_TRACE_STEPS = 3           # the steps ``profile_train --trace`` traces
@@ -2793,7 +2809,8 @@ def phase_tools(card, work, request_ms, train_ms=None):
     for b in (1, BATCH):
         serve[b] = profile_inference.main(prn50 + [
             "--batch_size", str(b), "--height", str(HEIGHT), "--width",
-            str(WIDTH), "--iters", str(TOOLS_ITERS)])
+            str(WIDTH), "--iters", str(TOOLS_ITERS)],
+            set_weights=phase5_weights)
         log(f"[tools] profile_inference {b}x{HEIGHT}x{WIDTH}: "
             f"{json.dumps(serve[b]['stages_ms'])}")
     lo = min(request_ms) * (1 - TOOLS_SERVE_BAND)
@@ -2807,7 +2824,7 @@ def phase_tools(card, work, request_ms, train_ms=None):
     step = profile_train.main(prn50 + [
         "--batch_size", str(BATCH), "--size", str(TRAIN_SIZE), "--iters",
         str(TOOLS_ITERS), "--warmup", "1", "--split_timing", "--trace",
-        trace_dir])
+        trace_dir], set_weights=phase5_weights)
     log(f"[tools] profile_train: {step['value']:.3f} ms/step, stages "
         f"{json.dumps(step['split_ms'])}, peak {step['peak_gib']} GiB")
     summary = parse_trace.main([trace_dir, "--runs", str(TOOLS_TRACE_STEPS),
@@ -2824,7 +2841,8 @@ def phase_tools(card, work, request_ms, train_ms=None):
                                  f"step, expected {per_step[counter]}")
     roof = roofline.main(prn50 + [
         "--imgs_per_s", str(BATCH / float(np.median(request_ms)) * 1e3),
-        "--train", "--train_ms", str(train_ms or step["value"])])
+        "--train", "--train_ms", str(train_ms or step["value"])],
+        set_weights=phase5_weights)
     log("[tools] roofline: " + "; ".join(
         f"{what} {roof[what]['flops'] / 1e9:.2f} GFLOP and "
         f"{roof[what]['bytes'] / 1e6:.1f} MB a{'n image' if what == 'request' else ' step'}"

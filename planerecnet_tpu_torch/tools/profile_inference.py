@@ -3,17 +3,21 @@
     python -m planerecnet_tpu_torch.tools.profile_inference
         [--config PlaneRecNet_50_config] [--height 480] [--width 640]
         [--batch_size 1] [--dtype float32|bfloat16] [--iters 20]
-        [--warmup 3] [--trace DIR] [--device cuda]
+        [--trace DIR] [--device cuda]
 
 Counterpart of ``tools/profile_inference.py``: times each stage of a
 request apart, after warm-up, on one frame batch staged on the device:
 ``fast_base_transform``, the backbone, the backbone and FPN, the full
 forward (backbone, FPN, heads, depth decoder), ``postprocess_batch`` of
 that forward's predictions, and the whole ``PlaneRecNetRunner.infer``.
-On the card each stage is the mean of ``--iters`` calls between two CUDA
-events (the device's time for the queued work); on the CPU
-(``--device cpu``) the host clock's. Prints one JSON line of ms by stage
-(``stages_ms``) and the request's images per second. ``--dtype
+On the card each stage is the mean of ``--iters`` calls, after
+``WARMUP``, between two CUDA events (the device's time for the queued
+work); on the CPU (``--device cpu``) the host clock's. The weights are
+the model's seeded initial ones (seed 0: the DCN offsets are zero and
+sample the integer grid), unless a caller of ``main`` passes
+``set_weights``, which is applied to the model before anything runs.
+Prints one JSON line of ms by stage (``stages_ms``) and the request's
+images per second. ``--dtype
 bfloat16`` runs the forward under the model's ``torch.autocast`` mode.
 ``--trace DIR`` then profiles two requests with ``torch.profiler`` and
 writes the trace and its kernel table (``parse_trace.record``) to DIR.
@@ -23,13 +27,15 @@ from __future__ import annotations
 
 import argparse
 import json
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 
 STAGES = ("fast_base_transform", "backbone", "backbone+fpn", "forward",
           "postprocess_batch", "infer")
+SEED = 0        # of the random weights and the frames
+WARMUP = 3      # untimed calls of each stage
 
 
 def parse_args(argv=None):
@@ -41,9 +47,6 @@ def parse_args(argv=None):
     p.add_argument("--dtype", default=None,
                    choices=[None, "float32", "bfloat16"])
     p.add_argument("--iters", default=20, type=int)
-    p.add_argument("--warmup", default=3, type=int)
-    p.add_argument("--seed", default=0, type=int,
-                   help="seed of the random weights and the frames")
     p.add_argument("--trace", default=None, type=str,
                    help="profile two requests into this directory")
     p.add_argument("--device", default="cuda",
@@ -84,7 +87,9 @@ def stage_fns(runner, frames: torch.Tensor) -> Dict:
             "infer": lambda: runner.infer(frames)}
 
 
-def main(argv: Optional[List[str]] = None) -> Dict:
+def main(argv: Optional[List[str]] = None,
+         set_weights: Optional[Callable[[torch.nn.Module], None]] = None
+         ) -> Dict:
     args = parse_args(argv)
     from planerecnet_tpu_torch.config import set_cfg
     from planerecnet_tpu_torch.runner import PlaneRecNetRunner
@@ -94,9 +99,11 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     cfg = set_cfg(args.config)
     if args.dtype:
         cfg = cfg.copy(dict(compute_dtype=args.dtype))
-    runner = PlaneRecNetRunner(cfg, seed=args.seed, device=args.device)
+    runner = PlaneRecNetRunner(cfg, seed=SEED, device=args.device)
+    if set_weights is not None:
+        set_weights(runner.model)
     device = runner.device
-    rng = np.random.RandomState(args.seed)
+    rng = np.random.RandomState(SEED)
     b, h, w = args.batch_size, args.height, args.width
     frames = torch.from_numpy((rng.rand(b, h, w, 3) * 255).astype(
         np.float32)).to(device)
@@ -110,7 +117,7 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     with torch.no_grad():
         fns = stage_fns(runner, frames)
         out["stages_ms"] = {name: time_ms(fns[name], device, args.iters,
-                                          args.warmup) for name in STAGES}
+                                          WARMUP) for name in STAGES}
         out["img_per_s"] = b / out["stages_ms"]["infer"] * 1e3
         if args.trace:
             summary = parse_trace.record(fns["infer"], 2, args.trace,

@@ -14,6 +14,10 @@ uploaded to the device before timing, two of them taken in turn, while
 the weights evolve step by step. The step time is the host clock over
 ``--iters`` steps ending in a synchronize; the peak memory is
 ``torch.cuda.max_memory_allocated`` over them. Prints one JSON line.
+The weights start as the model's seeded initial ones (seed 0: the DCN
+offsets are zero and sample the integer grid), unless a caller of
+``main`` passes ``set_weights``, which is applied to the model before
+the first step.
 
 Ablations, as the JAX tool's: ``--dtype``; ``--no_dcn`` (plain-conv
 backbone); ``--forward_only`` (the losses' forward, no backward or
@@ -49,6 +53,7 @@ import numpy as np
 import torch
 
 NUM_BATCHES = 2
+SEED = 0        # of the random weights; batch i is synth_batch's seed i
 REFERENCE_MS = 37 * 3600 * 1000 / 125000
 
 
@@ -95,8 +100,6 @@ def parse_args(argv=None):
     p.add_argument("--iters", default=20, type=int)
     p.add_argument("--warmup", default=2, type=int,
                    help="untimed steps after the first")
-    p.add_argument("--seed", default=0, type=int,
-                   help="seed of the random weights and the batches")
     p.add_argument("--no_dcn", action="store_true",
                    help="ablation: plain-conv backbone")
     p.add_argument("--forward_only", action="store_true",
@@ -251,7 +254,9 @@ def split_timing(state, batches, iters) -> Dict[str, float]:
     return total
 
 
-def main(argv: Optional[List[str]] = None) -> Dict:
+def main(argv: Optional[List[str]] = None,
+         set_weights: Optional[Callable[[torch.nn.Module], None]] = None
+         ) -> Dict:
     args = parse_args(argv)
     from planerecnet_tpu_torch import trainer
     from planerecnet_tpu_torch.tools import parse_trace
@@ -259,12 +264,13 @@ def main(argv: Optional[List[str]] = None) -> Dict:
 
     cfg = config(args)
     t0 = time.perf_counter()
-    state = trainer.create_train_state(cfg, seed=args.seed,
-                                       device=args.device)
+    state = trainer.create_train_state(cfg, seed=SEED, device=args.device)
+    if set_weights is not None:
+        set_weights(state.model)
     dev = state.device
     h = w = args.size
     batches = [trainer.unpack_wire_batch(cfg, synth_batch(
-        cfg, args.batch_size, h, w, seed=args.seed + i), dev)
+        cfg, args.batch_size, h, w, seed=i), dev)
         for i in range(NUM_BATCHES)]
     print(f"state init and upload: {time.perf_counter() - t0:.1f}s",
           flush=True)

@@ -16,7 +16,9 @@ bounds its kernels with the same table.
 forward, post-processing) and ``analyze_train`` one ``trainer.train_step``
 at ``--batch_size`` x ``--train_size``^2 (forward, the five losses,
 backward, Adam), each run once on the device first and counted on its
-second run, per image and per step:
+second run, per image and per step, with the model's seeded initial
+weights or, where a caller of ``main`` passes ``set_weights``, with the
+weights it sets on each model before it runs:
 
 - FLOPs are those of ``torch.utils.flop_counter`` (the registry that
   ``FlopCounterMode`` reads: matmuls, convolutions, attention), applied
@@ -53,7 +55,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 from unittest import mock
 
 import numpy as np
@@ -188,10 +190,12 @@ def count(fn) -> Accounting:
     return acc
 
 
-def analyze_inference(cfg, args) -> Dict:
+def analyze_inference(cfg, args, set_weights=None) -> Dict:
     """FLOPs and bytes per image of one request (module docstring)."""
     from planerecnet_tpu_torch.runner import PlaneRecNetRunner
     runner = PlaneRecNetRunner(cfg, device=args.device)
+    if set_weights is not None:
+        set_weights(runner.model)
     b = args.batch_size
     x = torch.zeros((b, args.height, args.width, 3), device=runner.device)
     acc = count(lambda: runner.infer(x))
@@ -200,11 +204,13 @@ def analyze_inference(cfg, args) -> Dict:
             "per": "image", "batch": b}
 
 
-def analyze_train(cfg, args) -> Dict:
+def analyze_train(cfg, args, set_weights=None) -> Dict:
     """FLOPs and bytes of one training step (module docstring)."""
     from planerecnet_tpu_torch import trainer
     from planerecnet_tpu_torch.tools.profile_train import synth_batch
     state = trainer.create_train_state(cfg, device=args.device)
+    if set_weights is not None:
+        set_weights(state.model)
     s = args.train_size
     batch = trainer.unpack_wire_batch(
         cfg, synth_batch(cfg, args.batch_size, s, s), state.device)
@@ -324,7 +330,9 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def main(argv: Optional[List[str]] = None) -> Dict:
+def main(argv: Optional[List[str]] = None,
+         set_weights: Optional[Callable[[torch.nn.Module], None]] = None
+         ) -> Dict:
     args = parse_args(argv)
     from planerecnet_tpu_torch.config import set_cfg
     from planerecnet_tpu_torch.models.planerecnet import compute_dtype
@@ -349,12 +357,12 @@ def main(argv: Optional[List[str]] = None) -> Dict:
         out["dcn_bytes"] = dcn_bytes(cfg, args)
         if not (args.imgs_per_s or args.train or args.gather):
             return out
-    out["request"] = analyze_inference(cfg, args)
+    out["request"] = analyze_inference(cfg, args, set_weights)
     _report(f"request ({args.config}, {args.batch_size}x{args.height}x"
             f"{args.width}, {dtype})", out["request"], peaks, peak_key,
             args.imgs_per_s)
     if args.train:
-        out["step"] = analyze_train(cfg, args)
+        out["step"] = analyze_train(cfg, args, set_weights)
         _report(f"train step ({args.batch_size}x{args.train_size}^2, "
                 f"{dtype})", out["step"], peaks, peak_key,
                 1e3 / args.train_ms if args.train_ms else None)

@@ -59,9 +59,9 @@ def _jax_tool(name):
     return mod
 
 
-def _quiet(fn, *args):
+def _quiet(fn, *args, **kwargs):
     with redirect_stdout(io.StringIO()):
-        return fn(*args)
+        return fn(*args, **kwargs)
 
 
 # ------------------------------------------------------------ profile_train
@@ -85,12 +85,23 @@ TRAIN_ARGS = ["--config", "PlaneRecNet_tiny_config", "--batch_size", "2",
               "cpu"]
 
 
-def _first_losses_of_trainer(flags):
+def _perturb_offsets(model):
+    """Seeded non-zero DCN offset and modulator weights (zero at init)."""
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if "offset_conv" in name or "modulator_conv" in name:
+                p.copy_(torch.randn(p.shape, generator=g) * 0.01)
+
+
+def _first_losses_of_trainer(flags, set_weights=None):
     """``trainer.grad_step``'s losses on the tool's first state and batch
     (the same seed), under the tool's config for ``flags``."""
     args = profile_train.parse_args(TRAIN_ARGS + flags)
     cfg = profile_train.config(args)
     state = trainer.create_train_state(cfg, seed=0, device="cpu")
+    if set_weights is not None:
+        set_weights(state.model)
     batch = trainer.unpack_wire_batch(
         cfg, profile_train.synth_batch(cfg, 2, 64, 64, seed=0), "cpu")
     losses, _ = trainer.grad_step(state, batch)
@@ -112,6 +123,20 @@ def test_profile_train_losses_equal_trainer(flags):
     assert out["peak_gib"] is None
 
 
+def test_profile_train_set_weights_reaches_the_step():
+    """The weights that a caller sets are those the timed step starts
+    from: the first losses equal the trainer's on the same perturbed
+    model, and differ from the initial weights' (the DCN offsets move)."""
+    out = _quiet(profile_train.main, TRAIN_ARGS,
+                 set_weights=_perturb_offsets)
+    want = _first_losses_of_trainer([], _perturb_offsets)
+    for key, value in want.items():
+        assert out["first_losses"][key] == pytest.approx(value, rel=1e-6,
+                                                         abs=1e-7), key
+    initial = _first_losses_of_trainer([])
+    assert any(initial[k] != want[k] for k in want)
+
+
 def test_profile_train_split_timing_and_trace(tmp_path):
     out = _quiet(profile_train.main, TRAIN_ARGS + [
         "--split_timing", "--trace", str(tmp_path), "--no_dcn",
@@ -127,10 +152,12 @@ def test_profile_train_split_timing_and_trace(tmp_path):
 
 
 def test_profile_inference_json():
+    models = []
     out = _quiet(profile_inference.main, [
         "--config", "PlaneRecNet_tiny_config", "--height", "64", "--width",
-        "64", "--batch_size", "2", "--iters", "1", "--warmup", "1",
-        "--device", "cpu"])
+        "64", "--batch_size", "2", "--iters", "1", "--device", "cpu"],
+        set_weights=models.append)
+    assert len(models) == 1 and isinstance(models[0], torch.nn.Module)
     assert tuple(out["stages_ms"]) == profile_inference.STAGES
     assert all(v > 0 for v in out["stages_ms"].values())
     assert out["clock"] == "host" and out["device"] == "cpu"
