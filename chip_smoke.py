@@ -57,7 +57,9 @@ training frames of its own, and prints no result line.
    ``--reproductablity`` trains with): two launches on the same inputs
    must give the same bits and agree with the plain version at the same
    tolerance, the scatter's with the CPU plain version in every bit at the
-   six training shapes; each is timed beside its atomic kernel. Last,
+   six training shapes (both offsets), every edge case, a pile-up of every
+   row on one patch (its tiles summed in rounds) and the spatial windows;
+   each is timed beside its atomic kernel. Last,
    ``ops/image.py::reflect_pad`` under ``--reproductablity``'s switches
    against ``F.pad(mode="reflect")`` on the CPU: values and gradients in
    every bit. Then the im2col (f32 and bf16) and the scatter (atomic and
@@ -495,12 +497,28 @@ def bound(nbytes, flops, rate=F32_FLOPS_PER_S):
                                    else "operations")
 
 
+def det_cpu_bits(det, idx, cw, dcols, h, w, what):
+    """The elements of the deterministic scatter's dx whose bits differ
+    from the plain version's on the CPU (four index_add_ in key order, the
+    order the variant sums in); raises unless there are none."""
+    from planerecnet_tpu_torch.ops.dcn_scatter import dcn_input_grad_plain
+    cpu = dcn_input_grad_plain(idx.cpu(), cw.cpu(), dcols.cpu(), h, w)
+    differ = int((det.cpu().view(torch.int32) != cpu.view(torch.int32)).sum())
+    log(f"[scatter-det] {what}: {differ} of {cpu.numel()} elements differ "
+        f"in their bits from the plain version on the CPU")
+    if differ:
+        raise AssertionError(f"scatter_det at {what} is not the CPU plain "
+                             f"version's sum")
+    return differ
+
+
 def scatter_record(dcn_input_grad, dcn_input_grad_plain, idx, cw, dcols,
                    h, w, what):
     """The scatter kernel against its plain version (raises past f32 TOL),
-    then timed beside it and beside its bound for this data: each row read
-    once (corner, weights, channels), dx written once; 2 flops per channel
-    for each corner that is in the map and has a non-zero weight."""
+    its deterministic variant against the CPU plain version in every bit,
+    then both timed beside the bound for this data: each row read once
+    (corner, weights, channels), dx written once; 2 flops per channel for
+    each corner that is in the map and has a non-zero weight."""
     tol = TOL[torch.float32]
     got = dcn_input_grad(idx, cw, dcols, h, w)
     want = dcn_input_grad_plain(idx, cw, dcols, h, w)
@@ -518,6 +536,8 @@ def scatter_record(dcn_input_grad, dcn_input_grad_plain, idx, cw, dcols,
         f"scale)")
     if not ok or not torch.isfinite(det).all():
         raise AssertionError(f"scatter_det disagrees with plain at {what}")
+    bits = det_cpu_bits(det, idx, cw, dcols, h, w, what)
+    del det
     b, _, c = dcols.shape
     ms = cuda_time_ms(lambda: dcn_input_grad(idx, cw, dcols, h, w))
     det_ms = cuda_time_ms(lambda: dcn_input_grad(idx, cw, dcols, h, w,
@@ -526,7 +546,8 @@ def scatter_record(dcn_input_grad, dcn_input_grad_plain, idx, cw, dcols,
     nbytes = (idx.numel() + cw.numel() + dcols.numel() + b * h * w * c) * 4
     b_ms, b_by = bound(nbytes, 2 * adds * c)
     return dict(ms=ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
-                bytes=nbytes, det_ms=det_ms, det_err=det_err, det=det)
+                bytes=nbytes, det_ms=det_ms, det_err=det_err,
+                det_cpu_bits_differ=bits)
 
 
 def phase_scatter(cases=True):
@@ -594,19 +615,6 @@ def phase_scatter(cases=True):
         rec = scatter_record(dcn_input_grad, dcn_input_grad_plain, idx, cw,
                              dcols, h, w, f"{name} +-8 px")
         worst = max(worst, rec["max_abs_err"])
-        # The variant sums in the CPU plain version's order with its
-        # roundings: count the elements whose bits differ from it.
-        cpu = dcn_input_grad_plain(idx.cpu(), cw.cpu(), dcols.cpu(), h, w)
-        rec["det_cpu_bits_differ"] = int(
-            (rec.pop("det").cpu().view(torch.int32)
-             != cpu.view(torch.int32)).sum())
-        log(f"[scatter-det] {name} +-8 px: {rec['det_cpu_bits_differ']} of "
-            f"{cpu.numel()} elements differ in their bits from the plain "
-            f"version on the CPU")
-        if rec["det_cpu_bits_differ"]:
-            raise AssertionError(f"scatter_det at {name} is not the CPU plain "
-                                 f"version's sum")
-        del cpu
         grad_out = (dcols.reshape(BATCH, ho * wo, 9, cin)
                     * mask.reshape(BATCH, ho * wo, 9, 1)).permute(
                         0, 3, 1, 2).contiguous()
@@ -623,20 +631,23 @@ def phase_scatter(cases=True):
         idx_t, cw_t = dcn.scatter_inputs(off_t, mask_t, h, w, stride=stride)
         tr = scatter_record(dcn_input_grad, dcn_input_grad_plain, idx_t,
                             cw_t, dcols, h, w, f"{name} N(0, {std}^2) px")
-        tr.pop("det")
         worst = max(worst, tr["max_abs_err"])
         rec.update(shape=name, layers=layers, plain_ms=plain_ms,
                    library_ms=lib_ms, train_offsets_ms=tr["ms"],
                    train_offsets_bound_ms=tr["bound_ms"],
                    det_train_offsets_ms=tr["det_ms"],
-                   det_err=max(rec["det_err"], tr["det_err"]))
+                   det_err=max(rec["det_err"], tr["det_err"]),
+                   det_cpu_bits_differ=(rec["det_cpu_bits_differ"]
+                                        + tr["det_cpu_bits_differ"]))
         log(f"[scatter] {name}: +-8 px {rec['ms']:.4f} ms (deterministic "
             f"{rec['det_ms']:.4f}), N(0, {std}^2) px {tr['ms']:.4f} ms "
             f"(deterministic {tr['det_ms']:.4f}), plain {plain_ms:.4f} ms, "
             f"grid_sampler_2d_backward {lib_ms:.4f} ms, bound "
             f"{rec['bound_ms']:.4f} / {tr['bound_ms']:.4f} ms "
             f"({rec['bound_by']}), {rec['bytes'] / rec['ms'] / 1e6:.1f} / "
-            f"{tr['bytes'] / tr['ms'] / 1e6:.1f} GB/s achieved")
+            f"{tr['bytes'] / tr['ms'] / 1e6:.1f} GB/s achieved, "
+            f"deterministic {rec['bytes'] / rec['det_ms'] / 1e6:.1f} / "
+            f"{tr['bytes'] / tr['det_ms'] / 1e6:.1f} GB/s")
         records.append(rec)
         del idx, cw, dcols, idx_t, cw_t
     if cases:
@@ -658,12 +669,21 @@ SCATTER_CASES = [
     ("rows in no 3x3 layout: flat tiles cut output rows", 2, 37, 45, 64, 1,
      0.5, 5),
 ]
+# (what, batch, H, W, C): every row's top-left corner on one pixel, so that
+# the tiles there hold far more rows than the deterministic variant's
+# rounds take (``DET_ROW_CAP``): it sums them in rounds of key ranges. Only
+# the variant: its bits against the CPU's; the atomic kernel's sum of
+# 57600 terms a pixel in another order is no test of its tolerance.
+PILE_UP = ("every row on one patch: the deterministic variant's rounds",
+           2, 80, 80, 128)
 
 
 def scatter_cases(dcn, dcn_input_grad, dcn_input_grad_plain):
     """The scatter against its plain version where its tiles and windows
-    can go wrong (``SCATTER_CASES``); returns the worst error."""
-    from planerecnet_tpu_torch.ops.dcn_scatter import scatter_plan
+    can go wrong (``SCATTER_CASES``), its deterministic variant against
+    the CPU plain version in every bit there and at ``PILE_UP``; returns
+    the worst error."""
+    from planerecnet_tpu_torch.ops.dcn_scatter import det_plan, scatter_plan
     worst, tol = 0.0, TOL[torch.float32]
     for i, (what, b, h, w, c, stride, spread, drop) in enumerate(
             SCATTER_CASES):
@@ -687,13 +707,26 @@ def scatter_cases(dcn, dcn_input_grad, dcn_input_grad_plain):
         err, ok = close_err(got, want, tol)
         det_err, det_ok = close_err(det, want, tol)
         log(f"[scatter-case] {what} ({b}x{h}x{w}x{c}/s{stride}, R={r}, "
-            f"{plan}): err {err:.3g}, deterministic variant {det_err:.3g} "
-            f"(two launches bit-identical) (tol {tol} of scale)")
+            f"{plan}, {det_plan(b, r, h, w, c)}): err {err:.3g}, "
+            f"deterministic variant {det_err:.3g} (two launches "
+            f"bit-identical) (tol {tol} of scale)")
         if not ok or not torch.isfinite(got).all():
             raise AssertionError(f"scatter disagrees with plain: {what}")
         if not det_ok or not torch.isfinite(det).all():
             raise AssertionError(f"scatter_det disagrees with plain: {what}")
+        det_cpu_bits(det, idx, cw, dcols, h, w, what)
         worst = max(worst, err, det_err)
+    what, b, h, w, c = PILE_UP
+    r = 9 * h * w
+    g = torch.Generator(device="cuda").manual_seed(99)
+    idx = torch.full((b, r, 2), h // 2, dtype=torch.int32, device="cuda")
+    cw = torch.rand(b, r, 4, device="cuda", generator=g)
+    dcols = torch.randn(b, r, c, device="cuda", generator=g)
+    det = det_twice(lambda: dcn_input_grad(idx, cw, dcols, h, w,
+                                           deterministic=True),
+                    f"scatter_det: {what}")
+    det_cpu_bits(det, idx, cw, dcols, h, w,
+                 f"{what} ({b}x{h}x{w}x{c}, R={r}, {det_plan(b, r, h, w, c)})")
     return worst
 
 
@@ -809,11 +842,13 @@ def spatial_window_cases(dcn):
                         raise AssertionError(
                             f"scatter disagrees with plain at {name}: err "
                             f"{err:.3g}, deterministic {det_err:.3g}")
+                    det_cpu_bits(det, idx, cw, dcols, h, w, name)
                     worst_scatter = max(worst_scatter, err, det_err)
                     del idx, cw, dcols, got, want, det
                 del x, off, mask
     log(f"[spatial-window] im2col (f32, bf16) and scatter (atomic, "
-        f"deterministic) against their plain versions at {n_cases} windows "
+        f"deterministic, its bits against the CPU's) against their plain "
+        f"versions at {n_cases} windows "
         f"of {SP_RANKS} ranks (row0 > 0 on every rank but the first; "
         f"offsets +-8 px; the whole input, the window's offset rows): worst "
         f"f32 error im2col {worst_cols:.3g}, scatter {worst_scatter:.3g} "
@@ -3139,6 +3174,11 @@ def main():
         "train_offsets_bound_ms": total(scatter, "train_offsets_bound_ms"),
         "cpu_plain_bits_differ": sum(r["det_cpu_bits_differ"]
                                      for r in scatter),
+        "cpu_plain_bits": "elements of dx whose bits differ from the CPU "
+                          "plain version's at the six shapes, +-8 px and "
+                          "training offsets (every edge case, the pile-up "
+                          "and the spatial windows must give 0 too, or the "
+                          "run fails)",
         "per": f"{train_per}: its {DCN_LAYERS_PRN50} DCN layers, as the "
                f"dcn_scatter row; launches: phase 9's train CLI runs with "
                f"--reproductablity",

@@ -66,25 +66,45 @@
 //
 // prn_dcn_scatter_det_f32 is the variant that sums in a fixed order, for
 // training that must reproduce a run (the train CLI's --reproductablity).
-// It gathers instead of scattering, in four launches:
-//   1. count: each corner in the map with a non-zero weight adds one to
-//      its dx pixel's count (integer atomics: the counts are the same
-//      whatever the order);
-//   2. scan: one block turns the counts into each pixel's start in a list
-//      of entries and sets the counts back to zero;
-//   3. fill: each such corner files (key, weight) at its pixel's start
-//      plus a rank taken with an integer atomic, key = corner * R + row:
-//      the order of the plain version's four index_add_ passes;
-//   4. sum: a warp a dx pixel first orders its entries by key (an entry's
-//      place is the count of the pixel's entries with a smaller key) into
-//      a second list, then its lanes, VEC channels each, sum weight x
-//      dcols over that list, the product and the sum each rounded on its
-//      own (no fused multiply-add), and write the pixel's dx.
-// So every dx element is the plain version's sum, in its order and with
-// its roundings: the CPU's four index_add_ give the same bits. The cost is
-// the gather: each row of dcols is read once for each of its corners, from
-// L2 where neighbouring pixels share rows, and the entry lists (8 bytes a
-// corner, twice) go through device memory; the wrapper allocates them.
+// Every dx element is the sum of its corners' w x dcols in key order, key =
+// corner * R + row: the order of the plain version's four index_add_
+// passes, each product and each sum rounded on its own (__fmul_rn,
+// __fadd_rn: no fused multiply-add), so it gives the CPU's bits. What
+// bounds it is bytes, as above: dcols read once, dx written once. Its
+// design, a block per tile of dx pixels (ops/dcn_scatter.py::det_plan:
+// 7x8 pixels where a pixel takes 9 rows' corners, 16x16 at stride 2), in
+// two launches:
+//   1. bin: each row's corners that land in the map with a non-zero weight
+//      name at most four tiles; each (row, tile) pair takes a place in the
+//      tile's bucket of kDetRowCap rows from an integer atomic count, which
+//      a warp takes once a tile (its lanes' pairs merged by
+//      __match_any_sync). A pair past the bucket's end goes to a spill
+//      list. The places vary from run to run; nothing below depends on
+//      them;
+//   2. sum, a block per tile and group of 16-channel slices, two blocks an
+//      SM: the block loads its rows and their corners (four rows a thread
+//      in flight at once), starts copying their dcols, 16 channels (64
+//      bytes) a row, into shared memory with cp.async, and meanwhile orders
+//      them: a row's corner k lands on pixel (top-left + k), so a pixel's
+//      entries in key order are, for k = 0..3, the rows whose top-left is
+//      (pixel - k), in row order. The block counting-sorts its rows by
+//      top-left (shared-memory integer atomics, a scan), ranks each within
+//      its bucket by row (about 9 rows a bucket), and writes each pixel's
+//      entries (row offset, weight), those of weight 0 left out, as one
+//      list. Then, slice by slice, four lanes a pixel (four channels each)
+//      sum their pixel's list from shared memory in registers and store
+//      the pixel with plain coalesced stores: no atomics, no zeroed dx.
+//      Each row's dcols is read from device memory once per tile it
+//      touches: 1.29x dcols at 7x8 (72 top-left pixels feed 56), 1.13x at
+//      16x16. One block an SM with two buffers lost more to its serial
+//      ordering than the second block on the SM, which overlaps it, costs.
+// A tile with more rows than a round holds (offsets that pile many rows
+// onto a few pixels) is summed in rounds of key ranges, each of at most
+// kDetRowCap corners: a histogram of the tile's keys picks the ranges,
+// refined where one bin alone overflows, and each round after the first
+// adds onto the dx that the earlier rounds stored. The key order holds
+// across rounds, so any corner_idx gives the same bits; only speed
+// depends on locality.
 
 #include <cuda_runtime.h>
 
@@ -487,58 +507,88 @@ int launch(const int2* idx, const float4* cw, const float* dcols, float* dx,
 
 constexpr int kDetThreads = 256;
 constexpr int kDetWarps = kDetThreads / 32;
+constexpr int kDetSlice = 16;         // channels a slice: 64 bytes of a row
+constexpr int kDetRowCap = 768;       // rows (or corners) a round holds
+constexpr int kDetMaxBuckets = 1024;  // (tile_h + 1) * (tile_w + 1), at most
+constexpr int kDetBins = 1024;        // histogram bins of an overflowing tile
 
-// The dx pixel (within its image) of corner k of a row, or -1 when the
-// corner lies outside the map or has weight 0 (it adds exactly 0).
-__device__ __forceinline__ int det_pixel(int2 c, int k, float w, int H,
-                                         int W) {
-  if (w == 0.f) return -1;
-  const int y = c.x + (k >> 1) - 1;
-  const int x = c.y + (k & 1) - 1;
-  if (y < 0 || y >= H || x < 0 || x >= W) return -1;
-  return y * W + x;
-}
+struct DetPlan {
+  int tile_h, tile_w;  // dx pixels of a tile
+  int tiles_down, tiles_across;
+  int slices;  // ceil(C / kDetSlice)
+  int group;   // slices a block takes, one after another
+  int groups;  // ceil(slices / group)
+};
 
-// Steps 1 and 3: FILL false counts each pixel's corners; FILL true files
-// them at start + rank, ranked by the count (reset by the scan).
-template <bool FILL>
+// Dynamic shared memory of det_tile_kernel: kDetSlice channels of each
+// staged row; the pixels' entries (four at most a row;
+// the rows' weights by slot live there until the entries are built); each
+// row's weights in summing order, its row, bucket, rank as the bucket
+// filled, the buckets' rows and the slots in summing order; the
+// histogram, the buckets' counts and starts.
+// ops/dcn_scatter.py::DET_SMEM mirrors it.
+constexpr size_t kDetSmem =
+    (size_t)kDetRowCap * (kDetSlice * sizeof(float) + 4 * sizeof(int2) +
+                          sizeof(float4) + 5 * sizeof(int)) +
+    (size_t)(kDetBins + 2 * kDetMaxBuckets + 1) * sizeof(int);
+
+// Step 1 (see the header). The whole warp runs each iteration, so that
+// its lanes can merge their (row, tile) pairs. count[tiles] counts the
+// spilled pairs.
 __global__ void __launch_bounds__(kDetThreads)
-    det_corners_kernel(const int2* __restrict__ corner_idx,
-                       const float4* __restrict__ corner_w,
-                       int* __restrict__ count, const int* __restrict__ start,
-                       int2* __restrict__ list, long long rows, int R, int H,
-                       int W) {
-  for (long long i = blockIdx.x * (long long)kDetThreads + threadIdx.x;
-       i < rows; i += (long long)gridDim.x * kDetThreads) {
-    const int b = static_cast<int>(i / R);
-    const int r = static_cast<int>(i - (long long)b * R);
-    const int2 c = corner_idx[i];
-    const float4 w4 = corner_w[i];
-    const float ws[4] = {w4.x, w4.y, w4.z, w4.w};
-    int* cnt = count + (size_t)b * H * W;
+    det_bin_kernel(const int2* __restrict__ corner_idx,
+                   const float4* __restrict__ corner_w, int* __restrict__ count,
+                   int* __restrict__ bucket, int2* __restrict__ spill,
+                   int tiles, int rows, int R, int H, int W, DetPlan p) {
+  const int lane = threadIdx.x & 31;
+  const unsigned below = (1u << lane) - 1u;
+  for (int base = blockIdx.x * kDetThreads + (threadIdx.x & ~31); base < rows;
+       base += gridDim.x * kDetThreads) {
+    const int i = base + lane;
+    int tile[4] = {-1, -1, -1, -1};
+    int r = 0;
+    if (i < rows) {
+      const int b = i / R;
+      r = i - b * R;
+      const int2 c = corner_idx[i];
+      const float4 w4 = corner_w[i];
+      const float ws[4] = {w4.x, w4.y, w4.z, w4.w};
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int y = c.x - 1 + (k >> 1), x = c.y - 1 + (k & 1);
+        if (ws[k] == 0.f || y < 0 || y >= H || x < 0 || x >= W) continue;
+        const int t = (b * p.tiles_down + y / p.tile_h) * p.tiles_across +
+                      x / p.tile_w;
+        bool seen = false;
+#pragma unroll
+        for (int j = 0; j < k; ++j) seen |= tile[j] == t;
+        if (!seen) tile[k] = t;
+      }
+    }
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
-      const int p = det_pixel(c, k, ws[k], H, W);
-      if (p < 0) continue;
-      if constexpr (FILL) {
-        const size_t px = (size_t)b * H * W + p;
-        const int at = start[px] + atomicAdd(cnt + p, 1);
-        list[at] = make_int2(k * R + r, __float_as_int(ws[k]));
-      } else {
-        atomicAdd(cnt + p, 1);
-      }
+      const int t = tile[k];
+      if (!__any_sync(0xffffffffu, t >= 0)) continue;
+      const unsigned peers = __match_any_sync(0xffffffffu, t);
+      const int leader = __ffs(peers) - 1;
+      int at = 0;
+      if (t >= 0 && lane == leader) at = atomicAdd(count + t, __popc(peers));
+      at = __shfl_sync(0xffffffffu, at, leader) + __popc(peers & below);
+      if (t < 0) continue;
+      if (at < kDetRowCap)
+        bucket[(size_t)t * kDetRowCap + at] = r;
+      else
+        spill[atomicAdd(count + tiles, 1)] = make_int2(t, r);
     }
   }
 }
 
-// Step 2, one block: start[p] = sum of count[q < p], start[n] = the total;
-// count is zeroed for the fill's ranks. Each thread takes a run of pixels.
-__global__ void __launch_bounds__(1024)
-    det_scan_kernel(int* __restrict__ count, int* __restrict__ start, int n) {
-  __shared__ int s_warp[32];
+// Exclusive scan of count[0, n) into start[0, n], start[n] the total, by
+// the whole block (n <= kDetMaxBuckets: at most four a thread).
+__device__ __forceinline__ void det_block_scan(const int* count, int* start,
+                                               int n, int* s_scan) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  const int per = (n + blockDim.x - 1) / blockDim.x;
+  const int per = (n + kDetThreads - 1) / kDetThreads;
   const int lo = min(n, (int)threadIdx.x * per), hi = min(n, lo + per);
   int run = 0;
   for (int p = lo; p < hi; ++p) run += count[p];
@@ -548,62 +598,293 @@ __global__ void __launch_bounds__(1024)
     const int v = __shfl_up_sync(0xffffffffu, incl, o);
     if (lane >= o) incl += v;
   }
-  if (lane == 31) s_warp[warp] = incl;
+  if (lane == 31) s_scan[warp] = incl;
   __syncthreads();
-  if (warp == 0) {
-    int v = lane < nwarps ? s_warp[lane] : 0;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int u = __shfl_up_sync(0xffffffffu, v, o);
-      if (lane >= o) v += u;
-    }
-    s_warp[lane] = v;   // inclusive over the warps
-  }
-  __syncthreads();
-  int base = (warp ? s_warp[warp - 1] : 0) + incl - run;
+  int base = incl - run;
+  for (int w = 0; w < warp; ++w) base += s_scan[w];
   for (int p = lo; p < hi; ++p) {
     start[p] = base;
     base += count[p];
-    count[p] = 0;
   }
-  if (threadIdx.x == 0) start[n] = s_warp[nwarps - 1];
+  if (threadIdx.x == kDetThreads - 1) start[n] = base;
+  __syncthreads();
 }
 
-// Step 4: a warp a dx pixel (see the header).
+// Step 4 (see the header): a block per (tile, group of slices), groups
+// fastest, so that the blocks of one tile run together.
 template <int VEC>
-__global__ void __launch_bounds__(kDetThreads)
-    det_sum_kernel(const int* __restrict__ start,
-                   const int2* __restrict__ list, int2* sorted,
-                   const float* __restrict__ dcols, float* __restrict__ dx,
-                   int npix, int HW, int R, int C) {
-  const int lane = threadIdx.x & 31;
-  for (int px = blockIdx.x * kDetWarps + (threadIdx.x >> 5); px < npix;
-       px += gridDim.x * kDetWarps) {
-    const int s = start[px], e = start[px + 1];
-    for (int i = s + lane; i < e; i += 32) {
-      const int2 en = list[i];
-      int place = s;
-      for (int j = s; j < e; ++j) place += list[j].x < en.x;
-      sorted[place] = en;
-    }
-    __threadfence_block();
-    __syncwarp();
-    const float* dc = dcols + (size_t)(px / HW) * R * C;
-    float* out = dx + (size_t)px * C;
-    for (int c0 = lane * VEC; c0 < C; c0 += 32 * VEC) {
-      Vec<VEC> acc;
+__global__ void __launch_bounds__(kDetThreads, 2)
+    det_tile_kernel(const int2* __restrict__ corner_idx,
+                    const float4* __restrict__ corner_w,
+                    const float* __restrict__ dcols, float* dx,
+                    const int* __restrict__ count,
+                    const int* __restrict__ bucket,
+                    const int2* __restrict__ spill, int R, int H, int W,
+                    int C, DetPlan p) {
+  extern __shared__ float4 smem4[];
+  float* s_dc = reinterpret_cast<float*>(smem4);  // cap x kDetSlice
+  // A pixel's entries: (offset of the row in a buffer, weight).
+  int2* s_plist = reinterpret_cast<int2*>(s_dc + kDetRowCap * kDetSlice);
+  float4* s_w = reinterpret_cast<float4*>(s_plist);  // by slot, until then
+  float4* s_ow = reinterpret_cast<float4*>(s_plist + 4 * kDetRowCap);
+  int* s_row = reinterpret_cast<int*>(s_ow + kDetRowCap);
+  int* s_q = s_row + kDetRowCap;     // a slot's bucket
+  int* s_rank = s_q + kDetRowCap;    // its rank as the bucket filled
+  int* s_tmp = s_rank + kDetRowCap;  // the buckets' rows, unordered
+  int* s_oj = s_tmp + kDetRowCap;    // slots in summing order
+  int* s_hist = s_oj + kDetRowCap;
+  int* s_qcount = s_hist + kDetBins;
+  int* s_qstart = s_qcount + kDetMaxBuckets;
+  // (pixel, corner) counts and starts, once the buckets are ordered.
+  int* s_pcount = s_qcount;
+  int* s_pstart = s_rank;  // over s_rank and s_tmp
+  __shared__ int s_n, s_take, s_scan[kDetWarps];
+
+  const int slice0 = (blockIdx.x % p.groups) * p.group;
+  const int nslices = min(p.group, p.slices - slice0);
+  const int tile = blockIdx.x / p.groups;
+  const int tx = tile % p.tiles_across;
+  const int ty = (tile / p.tiles_across) % p.tiles_down;
+  const int b = tile / (p.tiles_across * p.tiles_down);
+  const int y0 = ty * p.tile_h, x0 = tx * p.tile_w;
+  // Bucket qy * qw + qx holds the rows whose top-left corner is pixel
+  // (y0 - 1 + qy, x0 - 1 + qx).
+  const int qw = p.tile_w + 1;
+  const int nq = (p.tile_h + 1) * qw;
+  const int npc = 4 * p.tile_h * p.tile_w;  // (pixel, corner) pairs
+  // The tile's rows: its bucket, and past kDetRowCap the spill list's
+  // pairs that name it.
+  const int total = count[tile];
+  const int kept = min(total, kDetRowCap);
+  const int* rows = bucket + (size_t)tile * kDetRowCap;
+  const int spilled = total > kDetRowCap ? count[gridDim.x / p.groups] : 0;
+  const int keys = 4 * R;
+  constexpr int kLanes = kDetSlice / VEC;  // lanes a row or pixel
+
+  // Calls fn(i, r, corner, weights) for each of the tile's rows (i: its
+  // place in the bucket, or -1 from the spill list), four a thread at
+  // once, so that their loads are in flight together.
+  auto each_row = [&](auto&& fn) {
+    int i0 = 0;
+    do {
+      int r[4];
+      int2 c[4];
+      float4 w4[4];
 #pragma unroll
-      for (int q = 0; q < VEC; ++q) acc.v[q] = 0.f;
-      for (int i = s; i < e; ++i) {
-        const int2 en = sorted[i];
-        const float w = __int_as_float(en.y);
-        const Vec<VEC> d = *reinterpret_cast<const Vec<VEC>*>(
-            dc + (size_t)(en.x % R) * C + c0);
-#pragma unroll
-        for (int q = 0; q < VEC; ++q)
-          acc.v[q] = __fadd_rn(acc.v[q], __fmul_rn(w, d.v[q]));
+      for (int u = 0; u < 4; ++u) {
+        const int i = i0 + threadIdx.x + u * kDetThreads;
+        // The bucket's load does not wait for the count: what lies past
+        // the filed rows is read and dropped.
+        const int filed = i < kDetRowCap ? rows[i] : -1;
+        r[u] = -1;
+        if (i < kept) {
+          r[u] = filed;
+        } else if (i < kept + spilled) {
+          const int2 e = spill[i - kept];
+          if (e.x == tile) r[u] = e.y;
+        }
       }
-      *reinterpret_cast<Vec<VEC>*>(out + c0) = acc;
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        c[u] = make_int2(0, 0);
+        w4[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (r[u] < 0) continue;
+        const size_t row = (size_t)b * R + r[u];
+        c[u] = corner_idx[row];
+        w4[u] = corner_w[row];
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int i = i0 + threadIdx.x + u * kDetThreads;
+        if (r[u] >= 0) fn(i < kept ? i : -1, r[u], c[u], w4[u]);
+      }
+    } while ((i0 += 4 * kDetThreads) < kept + spilled);
+  };
+
+  // Row r's weights, each zeroed unless its corner lands in this tile (and
+  // the map) with a non-zero weight and a key in [lo, hi); its bucket.
+  auto corners = [&](int r, int2 c, float4 w4, int lo, int hi, int& q,
+                     float4& kept) {
+    float ws[4] = {w4.x, w4.y, w4.z, w4.w};
+    const int ty0 = c.x - 1 - y0, tx0 = c.y - 1 - x0;  // tile coordinates
+    bool any = false;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int py = ty0 + (k >> 1), px = tx0 + (k & 1);
+      const int key = k * R + r;
+      const bool keep = ws[k] != 0.f && py >= 0 && py < p.tile_h &&
+                        px >= 0 && px < p.tile_w && y0 + py < H &&
+                        x0 + px < W && key >= lo && key < hi;
+      if (!keep) ws[k] = 0.f;
+      any |= keep;
+    }
+    q = (ty0 + 1) * qw + tx0 + 1;
+    kept = make_float4(ws[0], ws[1], ws[2], ws[3]);
+    return any;
+  };
+
+  // Starts copying slice k of the n staged rows' dcols; commits a group
+  // (empty past the last slice).
+  auto copy_slice = [&](int k, int n) {
+    if (k < nslices) {
+      const int ch0 = (slice0 + k) * kDetSlice;
+      for (int e = threadIdx.x; e < n * kLanes; e += kDetThreads) {
+        const int j = e / kLanes, l = e - j * kLanes;
+        const int ch = ch0 + l * VEC;
+        const bool in = ch < C;
+        copy_async<VEC>(
+            s_dc + j * kDetSlice + l * VEC,
+            in ? dcols + ((size_t)b * R + s_row[j]) * C + ch : dcols,
+            in ? 4 * VEC : 0);
+      }
+    }
+    asm volatile("cp.async.commit_group;");
+  };
+
+  // One round: the corners with keys in [lo, hi) (at most kDetRowCap rows
+  // hold them; `all`: every row of the list, in list order), added onto dx
+  // unless `fresh` (the first round stores).
+  auto sum_round = [&](int lo, int hi, bool fresh, bool all) {
+    for (int e = threadIdx.x; e < nq; e += kDetThreads) s_qcount[e] = 0;
+    if (threadIdx.x == 0) s_n = 0;
+    __syncthreads();
+    each_row([&](int i, int r, int2 c, float4 w4) {
+      int q;
+      float4 w;
+      if (!corners(r, c, w4, lo, hi, q, w)) return;
+      const int j = all ? i : atomicAdd(&s_n, 1);
+      s_row[j] = r;
+      s_q[j] = q;
+      s_w[j] = w;
+      s_rank[j] = atomicAdd(s_qcount + q, 1);
+    });
+    __syncthreads();
+    const int n = all ? kept : s_n;
+    copy_slice(0, n);  // lands while the rows are ordered
+    det_block_scan(s_qcount, s_qstart, nq, s_scan);
+    for (int j = threadIdx.x; j < n; j += kDetThreads)
+      s_tmp[s_qstart[s_q[j]] + s_rank[j]] = s_row[j];
+    __syncthreads();
+    // A row's place: its bucket's start plus the bucket's smaller rows.
+    for (int j = threadIdx.x; j < n; j += kDetThreads) {
+      const int q = s_q[j], r = s_row[j];
+      const int e1 = s_qstart[q + 1];
+      int at = s_qstart[q];
+      for (int e = at; e < e1; ++e) at += s_tmp[e] < r;
+      s_oj[at] = j;
+      s_ow[at] = s_w[j];
+    }
+    __syncthreads();
+    // Pixel pix's entries in key order: for kc = 0..3, corner kc of the
+    // rows whose top-left is (pixel - kc), in row order, where its weight
+    // is not 0 (a corner of weight 0 adds nothing).
+    auto bucket = [&](int task) {
+      const int pix = task >> 2, kc = task & 3;
+      const int py = pix / p.tile_w, px = pix - py * p.tile_w;
+      return (py + 1 - (kc >> 1)) * qw + px + 1 - (kc & 1);
+    };
+    for (int task = threadIdx.x; task < npc; task += kDetThreads) {
+      const int q = bucket(task), kc = task & 3;
+      int cnt = 0;
+      for (int e = s_qstart[q]; e < s_qstart[q + 1]; ++e)
+        cnt += reinterpret_cast<const float*>(s_ow + e)[kc] != 0.f;
+      s_pcount[task] = cnt;
+    }
+    __syncthreads();
+    det_block_scan(s_pcount, s_pstart, npc, s_scan);
+    for (int task = threadIdx.x; task < npc; task += kDetThreads) {
+      const int q = bucket(task), kc = task & 3;
+      int at = s_pstart[task];
+      for (int e = s_qstart[q]; e < s_qstart[q + 1]; ++e) {
+        const float w = reinterpret_cast<const float*>(s_ow + e)[kc];
+        if (w != 0.f)
+          s_plist[at++] = make_int2(s_oj[e] * kDetSlice, __float_as_int(w));
+      }
+    }
+    __syncthreads();
+    for (int k = 0; k < nslices; ++k) {
+      asm volatile("cp.async.wait_group 0;" ::: "memory");
+      __syncthreads();
+      const int ch0 = (slice0 + k) * kDetSlice;
+      for (int task = threadIdx.x; task < p.tile_h * p.tile_w * kLanes;
+           task += kDetThreads) {
+        const int pix = task / kLanes, l = task - pix * kLanes;
+        const int py = pix / p.tile_w, px = pix - py * p.tile_w;
+        const int ch = ch0 + l * VEC;
+        if (y0 + py >= H || x0 + px >= W || ch >= C) continue;
+        float* out = dx + (((size_t)b * H + y0 + py) * W + x0 + px) * C + ch;
+        Vec<VEC> acc;
+#pragma unroll
+        for (int v = 0; v < VEC; ++v) acc.v[v] = 0.f;
+        if (!fresh) acc = *reinterpret_cast<const Vec<VEC>*>(out);
+        const float* mine = s_dc + l * VEC;
+        const int e1 = s_pstart[4 * pix + 4];
+#pragma unroll 4
+        for (int e = s_pstart[4 * pix]; e < e1; ++e) {
+          const int2 en = s_plist[e];
+          const float w = __int_as_float(en.y);
+          const Vec<VEC> d = *reinterpret_cast<const Vec<VEC>*>(mine + en.x);
+#pragma unroll
+          for (int v = 0; v < VEC; ++v)
+            acc.v[v] = __fadd_rn(acc.v[v], __fmul_rn(w, d.v[v]));
+        }
+        *reinterpret_cast<Vec<VEC>*>(out) = acc;
+      }
+      __syncthreads();  // before the next copy overwrites the buffer
+      copy_slice(k + 1, n);
+    }
+  };
+
+  if (total <= kDetRowCap) {
+    sum_round(0, keys, true, true);
+    return;
+  }
+  // More rows than a round holds: rounds of key ranges, each of at most
+  // kDetRowCap corners (so of at most as many rows), taken greedily from a
+  // histogram of the keys from lo on, which is refined to its first bin
+  // while that bin alone holds more.
+  bool fresh = true;
+  int lo = 0;
+  while (lo < keys) {
+    int end = keys, width;
+    for (;;) {
+      width = (end - lo + kDetBins - 1) / kDetBins;
+      for (int e = threadIdx.x; e < kDetBins; e += kDetThreads) s_hist[e] = 0;
+      __syncthreads();
+      each_row([&](int, int r, int2 c, float4 w4) {
+        int q;
+        float4 w;
+        if (!corners(r, c, w4, lo, end, q, w)) return;
+        const float ws[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          if (ws[k] != 0.f) atomicAdd(s_hist + (k * R + r - lo) / width, 1);
+      });
+      __syncthreads();
+      const bool fits = s_hist[0] <= kDetRowCap;
+      __syncthreads();
+      if (fits) break;
+      end = lo + width;
+    }
+    const int origin = lo;
+    int bin = 0;
+    while (lo < end) {
+      if (threadIdx.x == 0) {
+        int take = 0, sum = 0;
+        while (bin + take < kDetBins &&
+               sum + s_hist[bin + take] <= kDetRowCap)
+          sum += s_hist[bin + take++];
+        s_take = take;
+      }
+      __syncthreads();
+      const int take = s_take;
+      __syncthreads();
+      if (take == 0) break;  // the next bin alone overflows: refine it
+      bin += take;
+      const int hi = (int)min((long long)end, origin + (long long)bin * width);
+      sum_round(lo, hi, fresh, false);
+      fresh = false;
+      lo = hi;
     }
   }
 }
@@ -651,51 +932,55 @@ int prn_dcn_scatter_f32(const void* corner_idx, const void* corner_w,
 }
 
 // The deterministic variant (see the header): the same arguments as
-// prn_dcn_scatter_f32 but for the plan, and its workspace: count (B*H*W
-// int32, zeroed), start (B*H*W + 1 int32), list and sorted (4*B*R int2
-// each, on 8-byte boundaries). dx (B, H, W, C) f32 is fully written.
-// Returns the cudaError_t of the first launch that failed, else 0.
+// prn_dcn_scatter_f32 but for the plan, ops/dcn_scatter.py::DetPlan
+// (tile_h, tile_w, group), and its workspace: count (tiles + 1 int32,
+// zeroed), bucket (tiles * kDetRowCap int32) and spill (4*B*R int2, on an
+// 8-byte boundary). dx (B, H, W, C) f32 is fully written. Returns the
+// cudaError_t of the first launch that failed, else 0.
 int prn_dcn_scatter_det_f32(const void* corner_idx, const void* corner_w,
                             const void* dcols, void* dx, void* count,
-                            void* start, void* list, void* sorted, int B,
-                            int R, int H, int W, int C, void* stream) {
+                            void* bucket, void* spill, int B, int R, int H,
+                            int W, int C, int tile_h, int tile_w, int group,
+                            void* stream) {
   const long long rows = (long long)B * R;
-  const long long npix = (long long)B * H * W;
-  if (B <= 0 || R <= 0 || H <= 0 || W <= 0 || C <= 0 ||
-      4 * rows >= INT_MAX || npix >= INT_MAX ||
+  if (B <= 0 || R <= 0 || H <= 0 || W <= 0 || C <= 0 || tile_h <= 0 ||
+      tile_w <= 0 || group <= 0 || 4 * rows >= INT_MAX ||
+      (long long)(tile_h + 1) * (tile_w + 1) > kDetMaxBuckets ||
+      4LL * tile_h * tile_w > kDetMaxBuckets ||
       reinterpret_cast<uintptr_t>(corner_idx) % 8 != 0 ||
       reinterpret_cast<uintptr_t>(corner_w) % 16 != 0 ||
-      reinterpret_cast<uintptr_t>(list) % 8 != 0 ||
-      reinterpret_cast<uintptr_t>(sorted) % 8 != 0)
+      reinterpret_cast<uintptr_t>(spill) % 8 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int slices = (C + kDetSlice - 1) / kDetSlice;
+  DetPlan plan{tile_h, tile_w, (H + tile_h - 1) / tile_h,
+               (W + tile_w - 1) / tile_w, slices, group,
+               (slices + group - 1) / group};
+  const long long tiles = (long long)B * plan.tiles_down * plan.tiles_across;
+  if (tiles * plan.groups > INT_MAX || tiles * kDetRowCap > INT_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int2* idx = static_cast<const int2*>(corner_idx);
   const float4* cw = static_cast<const float4*>(corner_w);
   int* cnt = static_cast<int*>(count);
-  int* st = static_cast<int*>(start);
-  int2* ls = static_cast<int2*>(list);
-  int2* so = static_cast<int2*>(sorted);
-  const int row_blocks = det_blocks(rows, kDetThreads, 132 * 16);
-  det_corners_kernel<false><<<row_blocks, kDetThreads, 0, s>>>(
-      idx, cw, cnt, st, ls, rows, R, H, W);
+  int* bk = static_cast<int*>(bucket);
+  int2* sp = static_cast<int2*>(spill);
+  det_bin_kernel<<<det_blocks(rows, kDetThreads, 132 * 8), kDetThreads, 0,
+                   s>>>(idx, cw, cnt, bk, sp, static_cast<int>(tiles),
+                        static_cast<int>(rows), R, H, W, plan);
   if (cudaError_t e = cudaGetLastError()) return static_cast<int>(e);
-  det_scan_kernel<<<1, 1024, 0, s>>>(cnt, st, static_cast<int>(npix));
-  if (cudaError_t e = cudaGetLastError()) return static_cast<int>(e);
-  det_corners_kernel<true><<<row_blocks, kDetThreads, 0, s>>>(
-      idx, cw, cnt, st, ls, rows, R, H, W);
-  if (cudaError_t e = cudaGetLastError()) return static_cast<int>(e);
-  const int sum_blocks = det_blocks(npix, kDetWarps, 132 * 64);
   const float* dc = static_cast<const float*>(dcols);
   float* out = static_cast<float*>(dx);
   const bool vec = (C % 4) == 0 &&
                    reinterpret_cast<uintptr_t>(dcols) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(dx) % 16 == 0;
-  if (vec)
-    det_sum_kernel<4><<<sum_blocks, kDetThreads, 0, s>>>(
-        st, ls, so, dc, out, static_cast<int>(npix), H * W, R, C);
-  else
-    det_sum_kernel<1><<<sum_blocks, kDetThreads, 0, s>>>(
-        st, ls, so, dc, out, static_cast<int>(npix), H * W, R, C);
+  const int blocks = static_cast<int>(tiles * plan.groups);
+  auto kernel = vec ? det_tile_kernel<4> : det_tile_kernel<1>;
+  if (cudaError_t e = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(kDetSmem)))
+    return static_cast<int>(e);
+  kernel<<<blocks, kDetThreads, kDetSmem, s>>>(idx, cw, dc, out, cnt, bk, sp,
+                                              R, H, W, C, plan);
   return static_cast<int>(cudaGetLastError());
 }
 

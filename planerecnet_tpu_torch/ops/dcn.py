@@ -238,7 +238,7 @@ def _dcn_backward(x, offset, mask, weight, has_bias, dout, stride, padding,
     # dx: the modulated corner weights scatter dcols into the input map.
     corner_idx, contrib_w = _scatter_args(y0, x0, corners, vm, h, w)
     dx = dcn_input_grad(corner_idx, contrib_w, dcols_r, h, w,
-                        deterministic=deterministic)
+                        deterministic=deterministic, stride=stride)
     return dx, doffset, dmask, dweight, dbias
 
 

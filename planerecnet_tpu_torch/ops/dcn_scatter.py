@@ -12,13 +12,16 @@ one pixel; what lands in the margin is dropped.
 ``csrc/dcn_scatter.cu``, launched as ``scatter_plan`` lays it out (see the
 note there on the design and on ordering), or, with ``deterministic=True``,
 to its variant there that sums each dx element in the plain version's
-order, so that a run can be reproduced bit for bit.
+order, so that a run can be reproduced bit for bit, launched in tiles of
+dx as ``det_plan`` lays them out.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
+import math
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -50,6 +53,22 @@ WINDOW_PX = 1024
 # Output pixels across a tile: the candidates the plan weighs.
 TILE_WIDTHS = (4, 8, 16, 32)
 TAPS = 9
+# The deterministic variant's fixed shape (csrc/dcn_scatter.cu): channels a
+# slice (64 bytes of an f32 row), rows a round stages, the most buckets of
+# top-left corners ((tile_h + 1) x (tile_w + 1)) and of (pixel, corner)
+# pairs, histogram bins, and the dynamic shared memory they take
+# (``kDetSmem``): a slice buffer, four 8-byte entries, a float4 and five
+# int32 a row, the bins, the buckets' counts and starts. Two blocks an SM.
+DET_SLICE = 16
+DET_ROW_CAP = 768
+DET_MAX_BUCKETS = 1024
+DET_BINS = 1024
+DET_SMEM = (DET_ROW_CAP * (DET_SLICE * 4 + 4 * 8 + 16 + 5 * 4)
+            + (DET_BINS + 2 * DET_MAX_BUCKETS + 1) * 4)
+DET_STATIC_SMEM = 48          # s_n, s_take and the scan's eight warps
+DET_BLOCKS_PER_SM = 2
+# Tiles the deterministic plan weighs (pixels down, across).
+DET_TILES = ((6, 8), (7, 8), (8, 8), (8, 16), (16, 8), (16, 16))
 
 
 class ScatterPlan(NamedTuple):
@@ -171,6 +190,78 @@ def scatter_plan(b: int, r: int, h: int, w: int, c: int) -> ScatterPlan:
     return best[1]
 
 
+class DetPlan(NamedTuple):
+    """How ``csrc/dcn_scatter.cu``'s deterministic variant cuts one call:
+    tiles of ``tile_h`` x ``tile_w`` dx pixels of one image, and a block
+    per tile and ``group`` of its channel slices (``DET_SLICE`` each)."""
+    tile_h: int
+    tile_w: int
+    group: int
+
+    def grid(self, b: int, h: int, w: int) -> Tuple[int, int, int]:
+        """(images, tiles down, tiles across)."""
+        return b, -(-h // self.tile_h), -(-w // self.tile_w)
+
+    def tiles(self, b: int, h: int, w: int) -> int:
+        return math.prod(self.grid(b, h, w))
+
+    def groups(self, c: int) -> int:
+        slices = -(-c // DET_SLICE)
+        return -(-slices // self.group)
+
+    def blocks(self, b: int, h: int, w: int, c: int) -> int:
+        return self.tiles(b, h, w) * self.groups(c)
+
+
+def det_rows(density: float, tile_h: int, tile_w: int) -> float:
+    """Rows a tile's block expects to stage: those whose top-left corner
+    is one of the (tile_h + 1) x (tile_w + 1) pixels whose patch reaches
+    the tile, at ``density`` rows a pixel, plus four standard deviations
+    of a count of independent rows."""
+    mean = density * (tile_h + 1) * (tile_w + 1)
+    return mean + 4 * math.sqrt(mean)
+
+
+@functools.lru_cache(maxsize=None)
+def det_plan(b: int, r: int, h: int, w: int, c: int,
+             stride: Optional[int] = None) -> DetPlan:
+    """Tiles for the deterministic variant, cached per shape.
+
+    A 3x3 conv's rows put 9 / stride^2 top-left corners on each pixel of
+    the part of the map its output rows read: ``stride`` where the caller
+    knows it (a spatial rank's window of stride-1 rows can have the count
+    of a whole stride-2 layer's), else ``row_geometry``'s, else 9. Among
+    the tiles of ``DET_TILES`` (clipped to the map) whose expected rows
+    fit a round (``det_rows`` <= ``DET_ROW_CAP``; more take the overflow
+    rounds, still right), and each group of slices, the plan takes the
+    least cost: waves of blocks (``DET_BLOCKS_PER_SM`` an SM) times a
+    block's expected rows times its slices plus one for the rows' corners
+    and their order; ties go to the tile that reads the fewest rows a
+    pixel, then to the larger group.
+    """
+    if stride is None:
+        geom = row_geometry(r, h, w)
+        stride = geom[2] if geom else 1
+    density = TAPS / stride ** 2
+    slices = -(-c // DET_SLICE)
+    best = None
+    for th, tw in DET_TILES:
+        th, tw = min(th, h), min(tw, w)
+        rows = det_rows(density, th, tw)
+        if rows > DET_ROW_CAP:
+            continue
+        for group in range(slices, 0, -1):
+            plan = DetPlan(th, tw, group)
+            waves = -(-plan.blocks(b, h, w, c)
+                      // (NUM_SMS * DET_BLOCKS_PER_SM))
+            cost = waves * rows * (group + 1)
+            read = (th + 1) * (tw + 1) / (th * tw)
+            key = (cost, read, -group)
+            if best is None or key < best[0]:
+                best = (key, plan)
+    return best[1]
+
+
 def dcn_input_grad_plain(corner_idx: torch.Tensor, corner_w: torch.Tensor,
                          dcols: torch.Tensor, h: int, w: int) -> torch.Tensor:
     """Plain PyTorch scatter-add: (B, H, W, C) f32."""
@@ -206,8 +297,8 @@ def _library() -> ctypes.CDLL:
                                         + [ctypes.c_int] * 12
                                         + [ctypes.c_void_p])
     lib.prn_dcn_scatter_f32.restype = ctypes.c_int
-    lib.prn_dcn_scatter_det_f32.argtypes = ([ctypes.c_void_p] * 8
-                                            + [ctypes.c_int] * 5
+    lib.prn_dcn_scatter_det_f32.argtypes = ([ctypes.c_void_p] * 7
+                                            + [ctypes.c_int] * 8
                                             + [ctypes.c_void_p])
     lib.prn_dcn_scatter_det_f32.restype = ctypes.c_int
     return lib
@@ -215,7 +306,8 @@ def _library() -> ctypes.CDLL:
 
 def dcn_input_grad(corner_idx: torch.Tensor, corner_w: torch.Tensor,
                    dcols: torch.Tensor, h: int, w: int,
-                   deterministic: bool = False) -> torch.Tensor:
+                   deterministic: bool = False,
+                   stride: Optional[int] = None) -> torch.Tensor:
     """Accumulate the deformable-sampling gradient into the input map.
 
     corner_idx: (B, R, 2) int32, the top-left corner (y0 + 1, x0 + 1) of
@@ -225,7 +317,8 @@ def dcn_input_grad(corner_idx: torch.Tensor, corner_w: torch.Tensor,
     dcols: (B, R, C) f32 upstream gradient rows.
     Returns dx (B, H, W, C) f32. ``deterministic`` takes the kernel's
     variant that sums in a fixed order (the plain version's, with its
-    roundings). ``dcn_input_grad.launches`` counts the kernel's launches,
+    roundings), tiled for the conv's ``stride`` where it is given (see
+    ``det_plan``). ``dcn_input_grad.launches`` counts the kernel's launches,
     ``dcn_input_grad.det_launches`` those of the variant.
     """
     if dcols.device.type == "cpu":
@@ -252,7 +345,7 @@ def dcn_input_grad(corner_idx: torch.Tensor, corner_w: torch.Tensor,
         corner_w = corner_w.clone()
     b, r, c = dcols.shape
     if deterministic:
-        return _input_grad_det(corner_idx, corner_w, dcols, h, w)
+        return _input_grad_det(corner_idx, corner_w, dcols, h, w, stride)
     dx = torch.zeros((b, h, w, c), dtype=torch.float32, device=dcols.device)
     plan = scatter_plan(b, r, h, w, c)
     with torch.cuda.device(dcols.device):
@@ -265,22 +358,45 @@ def dcn_input_grad(corner_idx: torch.Tensor, corner_w: torch.Tensor,
     return dx
 
 
-def _input_grad_det(corner_idx, corner_w, dcols, h, w):
-    """The deterministic variant's launch: its workspace is a count and a
-    start for every dx pixel and two lists of (key, weight) entries, one
-    for each corner that may land in the map."""
+@contextlib.contextmanager
+def _unfilled():
+    """``torch.empty`` without the fill that
+    ``torch.use_deterministic_algorithms(True)`` adds (NaN, or an integer's
+    largest value), for buffers a kernel writes before it reads them."""
+    det = torch.utils.deterministic
+    fill = det.fill_uninitialized_memory
+    det.fill_uninitialized_memory = False
+    try:
+        yield
+    finally:
+        det.fill_uninitialized_memory = fill
+
+
+def _input_grad_det(corner_idx, corner_w, dcols, h, w, stride):
+    """The deterministic variant's launch, tiled by ``det_plan``: its
+    workspace is a count a tile (and one of the spilled pairs), a bucket of
+    ``DET_ROW_CAP`` rows a tile and a list of the (tile, row) pairs that
+    overflow their bucket (at most four a row)."""
     b, r, c = dcols.shape
     dev = dcols.device
-    dx = torch.empty((b, h, w, c), dtype=torch.float32, device=dev)
-    count = torch.zeros(b * h * w, dtype=torch.int32, device=dev)
-    start = torch.empty(b * h * w + 1, dtype=torch.int32, device=dev)
-    lists = torch.empty((2, 4 * b * r, 2), dtype=torch.int32, device=dev)
+    plan = det_plan(b, r, h, w, c, stride)
+    tiles = plan.tiles(b, h, w)
+    count = torch.zeros(tiles + 1, dtype=torch.int32, device=dev)
+    # The kernel stores every element of dx, and uses of the buckets and
+    # the spill list only what it has filed: under --reproductablity's
+    # switches torch.empty would first fill all three (dx is up to 105 MB
+    # at the training shapes), only for the kernel to overwrite them.
+    with _unfilled():
+        dx = torch.empty((b, h, w, c), dtype=torch.float32, device=dev)
+        bucket = torch.empty(tiles * DET_ROW_CAP, dtype=torch.int32,
+                             device=dev)
+        spill = torch.empty((4 * b * r, 2), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _library().prn_dcn_scatter_det_f32(
             corner_idx.data_ptr(), corner_w.data_ptr(), dcols.data_ptr(),
-            dx.data_ptr(), count.data_ptr(), start.data_ptr(),
-            lists[0].data_ptr(), lists[1].data_ptr(), b, r, h, w, c, stream)
+            dx.data_ptr(), count.data_ptr(), bucket.data_ptr(),
+            spill.data_ptr(), b, r, h, w, c, *plan, stream)
     cuda_build.check_launch(err, "dcn_scatter_det")
     dcn_input_grad.det_launches += 1
     return dx
