@@ -56,10 +56,12 @@ training frames of its own, and prints no result line.
    deterministic variant (``deterministic=True``, what
    ``--reproductablity`` trains with): two launches on the same inputs
    must give the same bits and agree with the plain version at the same
-   tolerance, the scatter's with the CPU plain version in every bit at the
-   six training shapes (both offsets), every edge case, a pile-up of every
-   row on one patch (its tiles summed in rounds) and the spatial windows;
-   each is timed beside its atomic kernel. Last,
+   tolerance, the dice/lava variants' also with their persistent grid
+   sized for a card of 114 SMs (``OTHER_SMS``), the scatter's with the
+   CPU plain version in every bit at the six training shapes (both
+   offsets), every edge case, a pile-up of every row on one patch (its
+   tiles summed in rounds) and the spatial windows; each is timed beside
+   its atomic kernel. Last,
    ``ops/image.py::reflect_pad`` under ``--reproductablity``'s switches
    against ``F.pad(mode="reflect")`` on the CPU: values and gradients in
    every bit. Then the im2col (f32 and bf16) and the scatter (atomic and
@@ -320,13 +322,14 @@ def phase_device():
 
 # The most bytes of spill stores that ptxas may report for each dice/lava
 # kernel, by (pass, K, deterministic variant): the figures of each one's
-# first build (PERF.md). The K=256 backward holds its 128 dk accumulators
-# in registers; ``phase_fence`` keeps its spill at 88 bytes of stores
-# (without it ~1 KB, which cost a quarter of its time).
+# first build (PERF.md; the deterministic variants' of their one-launch
+# design). The K=256 backward holds its 128 dk accumulators in registers;
+# ``phase_fence`` keeps its spill at 88 bytes of stores (without it ~1 KB,
+# which cost a quarter of its time).
 DICE_SPILL_LIMITS = {
     **{(d, k, det): 0 for d in ("fwd", "bwd") for k in (32, 128, 256)
        for det in (False, True)},
-    ("bwd", 256, False): 88, ("bwd", 256, True): 156}
+    ("bwd", 256, False): 88, ("bwd", 256, True): 128}
 
 
 def dice_spills(ptxas_log):
@@ -902,18 +905,52 @@ DICE_CASES = [
 ]
 
 
+# A grid for the deterministic dice/lava variants other than the card's SM
+# count: the SMs of an H100 PCIe. Their sums follow from the shape alone,
+# so a card of 114 SMs must give the same bits.
+OTHER_SMS = 114
+
+
+def on_other_card(dl, run, sms=OTHER_SMS):
+    """``run()`` with the dice/lava wrappers sizing their persistent grids
+    for a card of ``sms`` SMs (the C entry's ``grid_x``)."""
+    real = dl._launch_geometry
+    dl._launch_geometry = lambda *args: sms
+    try:
+        return run()
+    finally:
+        dl._launch_geometry = real
+
+
 def dice_errors(dl, ins, gs, what, worst):
     """Both kernels against their plain versions; raises past f32 TOL.
-    Folds the largest errors into ``worst`` (by kernel: fwd, bwd)."""
+    Folds the largest errors into ``worst`` (by kernel: fwd, bwd). The
+    deterministic variants must give the same bits twice, and with the
+    grid of a card of ``OTHER_SMS`` SMs."""
     got = dl.dice_lava_fwd(*ins)
     want = dl.fused_dice_lava_plain(*ins)
     got_b = dl.dice_lava_bwd(*ins, *gs)
     want_b = dl.fused_dice_lava_bwd_plain(*ins, *gs)
-    det = det_twice(lambda: dl.dice_lava_fwd(*ins, deterministic=True),
-                    f"dice_lava_fwd_det at {what}")
-    det_b = det_twice(lambda: dl.dice_lava_bwd(*ins, *gs, deterministic=True),
-                      f"dice_lava_bwd_det at {what}")
+
+    def run_det():
+        return dl.dice_lava_fwd(*ins, deterministic=True)
+
+    def run_det_b():
+        return dl.dice_lava_bwd(*ins, *gs, deterministic=True)
+
+    det = det_twice(run_det, f"dice_lava_fwd_det at {what}")
+    det_b = det_twice(run_det_b, f"dice_lava_bwd_det at {what}")
+    other = on_other_card(dl, lambda: (*run_det(), *run_det_b()))
     torch.cuda.synchronize()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for name, x, y in zip(("a", "b", "lava", "dk", "dm"), (*det, *det_b),
+                          other):
+        if not same_bits(x, y):
+            raise AssertionError(
+                f"dice_lava {name}_det at {what}: grid_x {sms} and "
+                f"{OTHER_SMS} differ at "
+                f"{int((x.view(torch.int32) != y.view(torch.int32)).sum())}"
+                f" elements")
     tol = TOL[torch.float32]
     errs, used = {}, {}
     names = ("a", "b", "lava", "dk", "dm")
@@ -930,7 +967,8 @@ def dice_errors(dl, ins, gs, what, worst):
     log(f"[dice] {what}: errors against plain {json.dumps(errs)} (tol {tol} "
         f"of scale); share of the allowance used "
         f"{json.dumps({k: round(v, 3) for k, v in used.items()})}; the "
-        f"deterministic variants' two launches bit-identical")
+        f"deterministic variants' two launches bit-identical, and at "
+        f"grid_x {sms} and {OTHER_SMS}")
     worst["fwd"] = max(worst["fwd"], errs["a"], errs["b"], errs["lava"])
     worst["bwd"] = max(worst["bwd"], errs["dk"], errs["dm"])
     worst["fwd_det"] = max(worst["fwd_det"], errs["a_det"], errs["b_det"],

@@ -139,6 +139,7 @@ class BackboneConfig(_FrozenBase):
     """ResNet backbone: (layers, dcn_layers, dcn_interval) pick the blocks
     that carry a deformable conv2 (see ``models/backbone.py::_stage_plan``)."""
 
+    name: str = "Base Backbone"
     layers: Tuple[int, ...] = ()
     dcn_layers: Tuple[int, ...] = (0, 0, 0, 0)
     dcn_interval: int = 1
@@ -150,14 +151,16 @@ class BackboneConfig(_FrozenBase):
     selected_layers: Tuple[int, ...] = ()
 
 
-resnet101_backbone = BackboneConfig(layers=(3, 4, 23, 3),
+resnet101_backbone = BackboneConfig(name="ResNet101",
+                                    layers=(3, 4, 23, 3),
                                     path="resnet101_reducedfc.pth",
                                     selected_layers=tuple(range(3, 7)))
 resnet101_dcn_inter3_backbone = resnet101_backbone.copy(dict(
-    dcn_layers=(0, 4, 23, 3), dcn_interval=3))
+    name="ResNet101_DCN_Interval3", dcn_layers=(0, 4, 23, 3),
+    dcn_interval=3))
 resnet50_dcnv2_backbone = resnet101_backbone.copy(dict(
-    path="resnet50-19c8e357.pth", layers=(3, 4, 6, 3),
-    dcn_layers=(0, 4, 6, 3)))
+    name="ResNet50_DCNv2", path="resnet50-19c8e357.pth",
+    layers=(3, 4, 6, 3), dcn_layers=(0, 4, 6, 3)))
 
 
 @dataclass(frozen=True)

@@ -101,16 +101,52 @@
 //
 // Deterministic variants (prn_dice_lava_fwd_det, prn_dice_lava_bwd_det),
 // for training that must reproduce a run: the same kernels with DET set,
-// whose flush stores a block's sums for an image to its own slot of a
-// workspace instead of adding them to a, b, lava or dk with atomics (dk,
-// flushed every kDkTiles tiles, adds to its slot after the first store;
-// one thread owns each element, so in a fixed order). A block's items are
-// a contiguous range, so it meets at most ipb images; its slots are
-// indexed by image - its first image. Then det_reduce_kernel adds, for
-// each output element, the slots of the blocks that met its image, in
-// block order, and adds that sum to the output. Partials are blocks x ipb
-// x 3P floats (forward) and blocks x ipb x P x K (backward: 17 MB at
-// B=8, P=K=128, HW=25600 on 132 SMs); the wrapper allocates them.
+// one launch a chunk of N, summing in an order fixed by the shape alone
+// (B, K, HW and the host's tiles_per_unit), not by the card's SM count or
+// by which block finishes first.
+//   Units. An image's pixel tiles are cut into units of tiles_per_unit
+//   consecutive tiles (ops/dice_lava.py::det_plan: about 128 units a
+//   batch, so that at B = 8 one block an SM takes one unit on an H100);
+//   units are numbered image-major. A block takes a contiguous range of
+//   units (the persistent grid, as many blocks as fit, but at most one a
+//   unit), so it never sums tiles of two units together: each unit's
+//   partial is the same whatever block computes it.
+//   Partials. At the end of a unit the block stores its partial to the
+//   unit's own slot of a workspace with plain stores: the forward's a, b,
+//   lava (3 x 128 floats), the backward's dk in register order (each
+//   thread's accumulators as float4s, thread-contiguous, so a warp's
+//   store is 512 coalesced bytes). The backward's kDetDkTiles flushes,
+//   counted from the unit's first tile, add to the slot with vector
+//   reductions (red.global.add.v4.f32): fire and forget, where reading
+//   the slot back held 128 accumulator registers while the loads were in
+//   flight (0.17 ms of a 1.7 ms launch at K = 256 on an H100 SXM). Every
+//   slot element is one thread's, so its adds land in that thread's
+//   program order.
+//   Sum. The launch is cooperative (every block resident at once), and
+//   once each block has stored its units' partials, one grid-wide
+//   barrier (an integer a chunk, zeroed by the caller); then every block
+//   sums an equal share of the output elements, each over its image's
+//   units in unit order, reading the slots from L2, and stores it (the
+//   lead chunk) or adds it to the output (the later ones). Workspace: B x
+//   units-an-image slots, 16384 floats a slot in the backward (32768 at
+//   K = 256), 384 in the forward; 8.4 MB at the training shape.
+//   Body: the atomic kernels', with three changes in the DET instances
+//   (the atomic kernels keep their code): the sigmoid's reciprocal by
+//   rcp.approx, the target and lava rows copied 16 bytes at a time, and dk
+//   flushed every kDetDkTiles = 8 tiles below K = 256. A clock64 probe of
+//   the tile loop put ~30% of the forward's tile in __frcp_rn and ~17% in
+//   issuing its 4-byte copies; the three took the forward from 0.26 to
+//   0.19 ms and the backward from 0.53 to 0.49 ms a launch at B=8, P=128,
+//   K=128, N=32, HW=25600 on an H100 SXM, and dk from 0.37 to 0.31 of its
+//   error allowance (PERF.md).
+//   Why not the last block of an image (an integer ticket): that block
+//   alone reads the image's 1-2 MB of slots at the end of the launch,
+//   0.1 ms of the 1.7 at K = 256 on an H100 SXM. Why not clusters: an
+//   image's partials summed through distributed shared memory would need
+//   the image's blocks in one cluster; at one ~200 KB block an SM a
+//   cluster of 16 (B = 8 on 132 SMs) needs a GPC with 16 free SMs, which
+//   the card's GPC layout decides, and a smaller cluster still needs a
+//   second level across clusters.
 //
 // Shared memory (KB; 1 KB alignment slack included), N = 32 / N = 63:
 //   K    pass  tile  features  dl tiles  kernel rows  targets      total
@@ -147,11 +183,21 @@ constexpr int kMaxN = 8 * kMaxNB - 1;   // instances of one launch
 // hundreds of increments (dk used 0.58 of its error allowance with one
 // flush per image, 0.36 with one per 16 tiles, for 2% of the time).
 constexpr int kDkTiles = 16;
+// The deterministic variants flush every kDetDkTiles below K = 256: their
+// later flushes are fire-and-forget reductions, so halving the drift costs
+// little (dk 0.37 -> 0.31 of its allowance, K = 128); at K = 256, where a
+// flush moves twice the accumulators, 16 tiles already keep dk at 0.35
+// (the earlier two-launch variant 0.355) and 8 would cost 2% of the
+// launch (PERF.md).
+constexpr int kDetDkTiles = 8;
 
 // Pixel-tile widths: the backward holds more per tile (dk in registers,
 // the dl tile in two layouts), so its tiles are narrower.
+constexpr int tile_width(int K, bool backward) {
+  return K >= 256 ? 16 : (backward ? 32 : 64);
+}
 template <int K, bool BWD> struct Tile {
-  static constexpr int TQ = K >= 256 ? 16 : (BWD ? 32 : 64);
+  static constexpr int TQ = tile_width(K, BWD);
 };
 
 struct Args {
@@ -163,11 +209,12 @@ struct Args {
   int B, P, N, HW;       // N: this launch's instances
   int ldn;               // all instances
   bool lead;             // the first (or only) chunk of N (see the header)
-  // The deterministic variants only: per-block partials (ws_cap floats),
-  // at most ipb images a block (see "Deterministic variants").
+  // The deterministic variants only (see "Deterministic variants"): a
+  // slot of partials a unit, this chunk's grid barrier (zeroed), and the
+  // tiles of a unit.
   float* ws;
-  long long ws_cap;
-  int ipb;
+  int* barrier;
+  int tpu;
 };
 
 // Shared-memory carve, in floats from a 1024-byte aligned base. The
@@ -399,8 +446,18 @@ __device__ __forceinline__ void wgmma_rs<16>(float (&d)[8],
 
 // ------------------------------------------------------------ layouts --
 
+// APPROX (the deterministic variants): the reciprocal by rcp.approx, one
+// MUFU operation within 1 ulp, where __frcp_rn's correctly rounded one is
+// an instruction sequence that took ~30% of the forward's tile (PERF.md).
+template <bool APPROX>
 __device__ __forceinline__ float sigmoid(float x) {
-  return __frcp_rn(1.f + __expf(-x));
+  if constexpr (APPROX) {
+    float r;
+    asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(1.f + __expf(-x)));
+    return r;
+  } else {
+    return __frcp_rn(1.f + __expf(-x));
+  }
 }
 
 // Offset (floats) of feature (q, c) in a TQ x K tile laid out for wgmma:
@@ -445,8 +502,11 @@ __device__ void stage_slots(const Args& a, int b, const Ctx& c) {
   }
 }
 
-// The next item's feature rows (swizzled), target rows and lava row.
-template <int K, int TQ>
+// The next item's feature rows (swizzled), target rows and lava row; with
+// VEC (the deterministic variants) the target and lava rows 16 bytes a
+// copy where HW % 4 == 0 (their rows are then 16-byte aligned), a quarter
+// of the 4-byte copies, which took ~17% of the forward's tile (PERF.md).
+template <int K, int TQ, bool VEC>
 __device__ void prefetch(const Args& a, int b, int q0, int stage,
                          const Ctx& c) {
   float* fs = c.smem + (stage ? c.l.feat1 : c.l.feat0);
@@ -461,6 +521,19 @@ __device__ void prefetch(const Args& a, int b, int q0, int stage,
   float* ts = c.smem + (stage ? c.l.ts1 : c.l.ts0);
   const float* tb = a.targets + (size_t)b * a.ldn * a.HW;
   const float* gb = a.grad + (size_t)b * a.HW;
+  if constexpr (VEC) {
+    if (a.HW % 4 == 0) {
+      for (int i = threadIdx.x; i < (a.N + 1) * (TQ / 4); i += kThreads) {
+        const int n = i / (TQ / 4);
+        const int q = 4 * (i - n * (TQ / 4));
+        const bool valid = q0 + q < a.HW;
+        const float* src = n < a.N ? tb + (size_t)n * a.HW : gb;
+        cp_async16(ts + n * c.l.ts_stride + q, valid ? src + q0 + q : gb,
+                   valid);
+      }
+      return;
+    }
+  }
   for (int i = threadIdx.x; i < (a.N + 1) * TQ; i += kThreads) {
     const int n = i / TQ;
     const int q = i - n * TQ;
@@ -557,6 +630,70 @@ __device__ __forceinline__ void item_range(int total, int& beg, int& end) {
   end = (int)(((long long)total * (blockIdx.x + 1)) / gridDim.x);
 }
 
+// DET: units of an image (of a.tpu tiles each, the last one shorter).
+__device__ __forceinline__ int det_groups(const Args& a, int ntiles) {
+  return (ntiles + a.tpu - 1) / a.tpu;
+}
+
+// DET: the unit of item it (image x ntiles + tile), numbered image-major.
+__device__ __forceinline__ int det_unit(const Args& a, int ntiles, int it) {
+  const int b = it / ntiles;
+  return b * det_groups(a, ntiles) + (it - b * ntiles) / a.tpu;
+}
+
+// DET: this block's contiguous share of the B x groups units, numbered
+// image-major, as a range of items (image x ntiles + tile).
+__device__ __forceinline__ void unit_items(const Args& a, int ntiles,
+                                           int& beg, int& end) {
+  const int groups = det_groups(a, ntiles);
+  const long long units = (long long)a.B * groups;
+  const int u0 = (int)((units * blockIdx.x) / gridDim.x);
+  const int u1 = (int)((units * (blockIdx.x + 1)) / gridDim.x);
+  beg = (u0 / groups) * ntiles + (u0 % groups) * a.tpu;
+  end = (u1 / groups) * ntiles + (u1 % groups) * a.tpu;
+}
+
+// DET: wait until every block of the launch has stored its partials
+// (the launch is cooperative, so all of them are resident); then every
+// block's loads see all of them.
+__device__ void det_barrier(int* count) {
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    atomicAdd(count, 1);
+    int seen;
+    do {
+      asm volatile("ld.acquire.gpu.global.s32 %0, [%1];"
+                   : "=r"(seen)
+                   : "l"(count)
+                   : "memory");
+    } while (seen < (int)gridDim.x);
+    __threadfence();
+  }
+  __syncthreads();
+}
+
+// DET forward: each of a, b, lava (a only after the lead chunk) of every
+// image = the sum of its units' partials in unit order (3 x kMaxP floats
+// a slot); the blocks share the elements.
+__device__ void det_sum_fwd(const Args& a, int ntiles, float* out_a,
+                            float* out_b, float* out_l) {
+  const int groups = det_groups(a, ntiles);
+  const int per = (a.lead ? 3 : 1) * a.P;
+  for (int i = blockIdx.x * kThreads + threadIdx.x; i < a.B * per;
+       i += gridDim.x * kThreads) {
+    const int b = i / per, o = (i - b * per) / a.P;
+    const int p = i - b * per - o * a.P;
+    const float* src = a.ws + (size_t)b * groups * 3 * kMaxP + o * kMaxP + p;
+    float s = __ldcg(src);
+#pragma unroll 8
+    for (int g = 1; g < groups; ++g) s += __ldcg(src + (size_t)g * 3 * kMaxP);
+    float* d = (o == 0 ? out_a : (o == 1 ? out_b : out_l)) +
+               (size_t)b * a.P + p;
+    *d = a.lead ? s : *d + s;
+  }
+}
+
 __device__ Ctx make_ctx(float* raw, int K, int TQ, int N, bool backward) {
   Ctx c;
   const uint32_t base = smem_addr(raw);
@@ -591,11 +728,14 @@ __global__ void __launch_bounds__(kThreads, 1)
   const Ctx c = make_ctx(smem_raw, K, TQ, a.N, false);
   const int ntiles = (a.HW + TQ - 1) / TQ;
   int beg, end;
-  item_range(a.B * ntiles, beg, end);
+  if constexpr (DET)
+    unit_items(a, ntiles, beg, end);
+  else
+    item_range(a.B * ntiles, beg, end);
   if (beg >= end) return;
   const int nbn = c.l.np / 8;
-  const int img0 = beg / ntiles;   // the first image of this block's items
   zero_pad_rows(a, c);
+  int unit = -1;   // DET: the unit whose partial the registers hold
 
   float cacc[kMaxNB][4];
   float sb[2] = {0.f, 0.f};
@@ -605,7 +745,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int e = 0; e < 4; ++e) cacc[nb][e] = 0.f;
 
   // a[p] = sum_n onehot[p, n] C[p, n], lava[p] = C[p, N], b[p]: reduce
-  // over the 4 lanes of a row, one atomic per slot and quantity.
+  // over the 4 lanes of a row, one atomic per slot and quantity (DET: one
+  // store to the unit's slot).
   auto flush = [&](int b) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -633,12 +774,11 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
       if (c.t == 0 && p < a.P) {
         if constexpr (DET) {
-          float* w = a.ws + ((size_t)blockIdx.x * a.ipb + (b - img0)) * 3 *
-                                a.P + p;
+          float* w = a.ws + (size_t)unit * 3 * kMaxP + p;
           w[0] = va;
           if (a.lead) {
-            w[a.P] = vb;
-            w[2 * a.P] = vl;
+            w[kMaxP] = vb;
+            w[2 * kMaxP] = vl;
           }
         } else {
           atomicAdd(out_a + (size_t)b * a.P + p, va);
@@ -656,7 +796,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int e = 0; e < 4; ++e) cacc[nb][e] = 0.f;
   };
 
-  prefetch<K, TQ>(a, beg / ntiles, (beg % ntiles) * TQ, 0, c);
+  prefetch<K, TQ, DET>(a, beg / ntiles, (beg % ntiles) * TQ, 0, c);
   cp_async_commit();
   int cur = -1;
   for (int it = beg; it < end; ++it) {
@@ -668,14 +808,22 @@ __global__ void __launch_bounds__(kThreads, 1)
     // may change.
     cp_async_wait_all();
     __syncthreads();
-    if (b != cur) {
+    if constexpr (DET) {
+      const int u = det_unit(a, ntiles, it);
+      if (u != unit) {
+        if (unit >= 0) flush(cur);
+        if (b != cur) stage_slots<K>(a, b, c);
+        cur = b;
+        unit = u;
+      }
+    } else if (b != cur) {
       if (cur >= 0) flush(cur);
       stage_slots<K>(a, b, c);
       cur = b;
     }
     if (it + 1 < end) {
-      prefetch<K, TQ>(a, (it + 1) / ntiles, ((it + 1) % ntiles) * TQ,
-                      stage ^ 1, c);
+      prefetch<K, TQ, DET>(a, (it + 1) / ntiles, ((it + 1) % ntiles) * TQ,
+                           stage ^ 1, c);
       cp_async_commit();
     }
     split_tile<K, TQ>(stage, c);
@@ -689,7 +837,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int q = 8 * j + 2 * c.t + (e & 1);
-        const float v = q < qn ? sigmoid(s[4 * j + e]) : 0.f;
+        const float v = q < qn ? sigmoid<DET>(s[4 * j + e]) : 0.f;
         s[4 * j + e] = v;
         sb[e >> 1] = fmaf(v, v, sb[e >> 1]);
       }
@@ -726,6 +874,10 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int e = 0; e < 4; ++e) cacc[nb][e] += part[nb][e];
   }
   flush(cur);
+  if constexpr (DET) {
+    det_barrier(a.barrier);
+    det_sum_fwd(a, ntiles, out_a, out_b, out_l);
+  }
 }
 
 // ----------------------------------------------------------- backward --
@@ -758,6 +910,63 @@ __device__ __forceinline__ void keep(uint32_t& r) {
   asm volatile("" : "+r"(r)::"memory");
 }
 
+// DET backward: dk of every image = the sum of its units' partials in
+// unit order; the blocks share the slot's float4s. A slot holds each
+// thread's DKR accumulators as float4s, float4 i of thread x at
+// i x kThreads + x, and the elements they stand for follow from x's warp
+// and lane: with wgmma (KWG) accumulator 4 j + e is channel ch0 + 8
+// (e >> 1), slot 8 j + 2 t + (e & 1); on mma.sync 4 nb + 2 h + e is slot
+// row0 + 8 h, channel 8 nb + 2 t + e. The lead chunk stores, the later
+// ones add.
+template <int K, int DKR, bool KWG>
+__device__ void det_sum_bwd(const Args& a, int ntiles, float* dk) {
+  constexpr int kQuads = DKR / 4 * kThreads;   // float4s a slot
+  const int groups = det_groups(a, ntiles);
+  const float4* ws = reinterpret_cast<const float4*>(a.ws);
+  for (int idx = blockIdx.x * kThreads + threadIdx.x; idx < a.B * kQuads;
+       idx += gridDim.x * kThreads) {
+    const int b = idx / kQuads, q = idx - b * kQuads;
+    const float4* src = ws + (size_t)b * groups * kQuads + q;
+    float4 s = __ldcg(src);
+#pragma unroll 8
+    for (int g = 1; g < groups; ++g) {
+      const float4 v = __ldcg(src + (size_t)g * kQuads);
+      s = make_float4(s.x + v.x, s.y + v.y, s.z + v.z, s.w + v.w);
+    }
+    const int i = q / kThreads, x = q % kThreads;
+    const int g8 = (x % 32) / 4, t = x % 4;
+    const int r0 = 16 * (x / 32) + g8;   // ch0 (KWG) or row0
+    float* dkb = dk + (size_t)b * a.P * K;
+    if constexpr (KWG) {
+      const float v[4] = {s.x, s.y, s.z, s.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int ch = r0 + 8 * (e >> 1);
+        const int p = 8 * i + 2 * t + (e & 1);
+        if (ch < K && p < a.P) {
+          float* d = dkb + (size_t)p * K + ch;
+          *d = a.lead ? v[e] : *d + v[e];
+        }
+      }
+    } else {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int p = r0 + 8 * h;
+        if (p < a.P) {
+          float2* d = reinterpret_cast<float2*>(dkb + (size_t)p * K + 8 * i +
+                                                2 * t);
+          float2 v = h ? make_float2(s.z, s.w) : make_float2(s.x, s.y);
+          if (!a.lead) {
+            const float2 o = *d;
+            v = make_float2(o.x + v.x, o.y + v.y);
+          }
+          *d = v;
+        }
+      }
+    }
+  }
+}
+
 template <int K, bool DET>
 __global__ void __launch_bounds__(kThreads, 1)
     dice_lava_bwd_kernel(Args a, const float* __restrict__ ga,
@@ -784,11 +993,16 @@ __global__ void __launch_bounds__(kThreads, 1)
   const Ctx c = make_ctx(smem_raw, K, TQ, a.N, true);
   const int ntiles = (a.HW + TQ - 1) / TQ;
   int beg, end;
-  item_range(a.B * ntiles, beg, end);
+  if constexpr (DET)
+    unit_items(a, ntiles, beg, end);
+  else
+    item_range(a.B * ntiles, beg, end);
   if (beg >= end) return;
   zero_pad_rows(a, c);
-  const int img0 = beg / ntiles;   // the first image of this block's items
-  bool fresh = true;   // DET: the image's slot has not been stored yet
+  // DET: the unit whose partial dka holds, its first item, and whether
+  // its slot has been stored yet.
+  int unit = -1, first = beg;
+  bool fresh = true;
   const int nk = c.l.nk;
   const int row0 = 16 * c.warp + c.g;    // this thread's slots: row0, row0 + 8
   // kWg: this thread's channels of dk^T, ch0 and ch0 + 8 (at K = 32
@@ -804,13 +1018,22 @@ __global__ void __launch_bounds__(kThreads, 1)
   // [k-step][a0..a3], zero past P and N, loaded once per image.
   float ohf[kMaxNB][4];
 
-  // DET: this block's slot for image b (P x K), stored at the image's
-  // first flush and added to at the later ones.
-  auto slot = [&](int b) {
-    return a.ws + ((size_t)blockIdx.x * a.ipb + (b - img0)) * a.P * K;
-  };
   auto flush = [&](int b) {
-    if constexpr (kWg) {
+    if constexpr (DET) {
+      // The unit's slot, in register order (coalesced 16-byte accesses):
+      // stored, then added to by this thread alone (see the header).
+      float4* w = reinterpret_cast<float4*>(a.ws) +
+                  (size_t)unit * (DKR / 4) * kThreads + threadIdx.x;
+#pragma unroll
+      for (int i = 0; i < DKR / 4; ++i) {
+        const float4 v = make_float4(dka[4 * i], dka[4 * i + 1],
+                                     dka[4 * i + 2], dka[4 * i + 3]);
+        if (fresh)
+          w[i * kThreads] = v;
+        else
+          atomicAdd(w + i * kThreads, v);
+      }
+    } else if constexpr (kWg) {
       // dka[4 j + e]: channel ch0 + 8 (e >> 1), slot 8 j + 2 t + (e & 1).
 #pragma unroll
       for (int j = 0; j < 16; ++j)
@@ -818,37 +1041,21 @@ __global__ void __launch_bounds__(kThreads, 1)
         for (int e = 0; e < 4; ++e) {
           const int ch = ch0 + 8 * (e >> 1);
           const int p = 8 * j + 2 * c.t + (e & 1);
-          if (ch < K && p < a.P) {
-            if constexpr (DET) {
-              float* w = slot(b) + (size_t)p * K + ch;
-              *w = fresh ? dka[4 * j + e] : *w + dka[4 * j + e];
-            } else {
-              atomicAdd(dk + ((size_t)b * a.P + p) * K + ch, dka[4 * j + e]);
-            }
-          }
+          if (ch < K && p < a.P)
+            atomicAdd(dk + ((size_t)b * a.P + p) * K + ch, dka[4 * j + e]);
         }
     } else {
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int p = row0 + 8 * h;
         if (p < a.P) {
-          float* row = DET ? slot(b) + (size_t)p * K
-                           : dk + ((size_t)b * a.P + p) * K;
+          float* row = dk + ((size_t)b * a.P + p) * K;
 #pragma unroll
           for (int nb = 0; nb < KS; ++nb) {
             float2* d = reinterpret_cast<float2*>(row + 8 * nb + 2 * c.t);
             const float2 v = make_float2(dka[4 * nb + 2 * h],
                                          dka[4 * nb + 2 * h + 1]);
-            if constexpr (DET) {
-              if (fresh) {
-                *d = v;
-              } else {
-                const float2 o = *d;
-                *d = make_float2(o.x + v.x, o.y + v.y);
-              }
-            } else {
-              atomicAdd(d, v);
-            }
+            atomicAdd(d, v);
           }
         }
       }
@@ -858,7 +1065,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     fresh = false;
   };
 
-  prefetch<K, TQ>(a, beg / ntiles, (beg % ntiles) * TQ, 0, c);
+  prefetch<K, TQ, DET>(a, beg / ntiles, (beg % ntiles) * TQ, 0, c);
   cp_async_commit();
   int cur = -1;
   for (int it = beg; it < end; ++it) {
@@ -867,9 +1074,19 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int q0 = (it - b * ntiles) * TQ;
     cp_async_wait_all();
     __syncthreads();   // as in the forward
+    if constexpr (DET) {
+      const int u = det_unit(a, ntiles, it);
+      if (u != unit) {
+        if (unit >= 0) flush(cur);
+        unit = u;
+        first = it;
+        fresh = true;
+      }
+    }
     if (b != cur) {
-      if (cur >= 0) flush(cur);
-      fresh = true;
+      if constexpr (!DET) {
+        if (cur >= 0) flush(cur);
+      }
       stage_slots<K>(a, b, c);
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
@@ -892,8 +1109,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       cur = b;
     }
     if (it + 1 < end) {
-      prefetch<K, TQ>(a, (it + 1) / ntiles, ((it + 1) % ntiles) * TQ,
-                      stage ^ 1, c);
+      prefetch<K, TQ, DET>(a, (it + 1) / ntiles, ((it + 1) % ntiles) * TQ,
+                           stage ^ 1, c);
       cp_async_commit();
     }
     split_tile<K, TQ>(stage, c);
@@ -940,7 +1157,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int e = 0; e < 4; ++e) {
         const int h = e >> 1;
         const float pix = q + (e & 1) < qn ? 1.f : 0.f;
-        const float raw = sigmoid(s[4 * j + e]);
+        const float raw = sigmoid<DET>(s[4 * j + e]);
         const float v = raw * pix;
         const float ds = cga[h] * tacc[j][e] + 2.f * cgb[h] * v +
                          cgl[h] * ((e & 1) ? gq.y : gq.x);
@@ -1148,10 +1365,15 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
     }
     fence();
-    if ((it - beg) % kDkTiles == kDkTiles - 1) flush(cur);
+    constexpr int every = DET && K < 256 ? kDetDkTiles : kDkTiles;
+    if ((it - first) % every == every - 1) flush(cur);
     fence();
   }
   flush(cur);
+  if constexpr (DET) {
+    det_barrier(a.barrier);
+    det_sum_bwd<K, DKR, kWg>(a, ntiles, dk);
+  }
 }
 
 // --------------------------------------------------------------- host --
@@ -1173,75 +1395,12 @@ int prepare(Kernel kernel, size_t bytes, int sms, int items, int& grid) {
   return 0;
 }
 
-// The deterministic variants' second pass: out_s[b, i] += the sum, over
-// the blocks in order whose items meet image b, of their slot's element
-// (s, i) (slots of `stride` floats, ipb a block; see the header).
-__global__ void __launch_bounds__(256)
-    det_reduce_kernel(const float* __restrict__ ws, float* out0,
-                      float* out1, float* out2, int nout, int len,
-                      int stride, int B, int ntiles, int items, int grid,
-                      int ipb) {
-  extern __shared__ int s_img[];   // each block's first and last image
-  for (int blk = threadIdx.x; blk < grid; blk += blockDim.x) {
-    const int beg = (int)(((long long)items * blk) / grid);
-    const int end = (int)(((long long)items * (blk + 1)) / grid);
-    s_img[2 * blk] = beg < end ? beg / ntiles : 1;
-    s_img[2 * blk + 1] = beg < end ? (end - 1) / ntiles : 0;
-  }
-  __syncthreads();
-  const long long total = (long long)B * nout * len;
-  for (long long idx = blockIdx.x * 256LL + threadIdx.x; idx < total;
-       idx += (long long)gridDim.x * 256) {
-    const int i = (int)(idx % len);
-    const int t = (int)(idx / len);
-    const int o = t % nout, b = t / nout;
-    float acc = 0.f;
-    for (int blk = 0; blk < grid; ++blk) {
-      const int first = s_img[2 * blk], last = s_img[2 * blk + 1];
-      if (b < first || b > last) continue;
-      acc += ws[((size_t)blk * ipb + (b - first)) * stride +
-                (size_t)o * len + i];
-    }
-    float* out = o == 0 ? out0 : (o == 1 ? out1 : out2);
-    out[(size_t)b * len + i] += acc;
-  }
-}
-
-// The persistent grid of one launch and, for a deterministic variant, its
-// tiles an image and the most images a block meets.
+// Tiles of an image, and the work a launch shares out over its persistent
+// grid: (image, tile) items, or for a deterministic variant its units.
 template <int K, bool BWD, bool DET>
-int geometry(const Args& a, int sms, int& grid, int& ntiles, int& ipb) {
-  constexpr int TQ = Tile<K, BWD>::TQ;
-  const size_t bytes = smem_bytes(K, TQ, a.N, BWD);
-  ntiles = (a.HW + TQ - 1) / TQ;
-  const int items = a.B * ntiles;
-  int err;
-  if constexpr (BWD)
-    err = prepare(dice_lava_bwd_kernel<K, DET>, bytes, sms, items, grid);
-  else
-    err = prepare(dice_lava_fwd_kernel<K, DET>, bytes, sms, items, grid);
-  if (err) return err;
-  const int longest = (items + grid - 1) / grid;
-  ipb = (longest - 1) / ntiles + 2 < a.B ? (longest - 1) / ntiles + 2 : a.B;
-  return 0;
-}
-
-// Floats of one launch's partials.
-template <bool BWD>
-long long det_floats(const Args& a, int K, int grid, int ipb) {
-  return (long long)grid * ipb * a.P * (BWD ? K : 3);
-}
-
-int det_reduce(const Args& a, float* o0, float* o1, float* o2, int nout,
-               int len, int stride, int ntiles, int grid, int ipb,
-               cudaStream_t s) {
-  const long long total = (long long)a.B * nout * len;
-  const long long want = (total + 255) / 256;
-  const int blocks = static_cast<int>(want < 132 * 8 ? want : 132 * 8);
-  det_reduce_kernel<<<blocks, 256, 2 * grid * sizeof(int), s>>>(
-      a.ws, o0, o1, o2, nout, len, stride, a.B, ntiles, a.B * ntiles, grid,
-      ipb);
-  return static_cast<int>(cudaGetLastError());
+int work_items(const Args& a) {
+  const int ntiles = (a.HW + Tile<K, BWD>::TQ - 1) / Tile<K, BWD>::TQ;
+  return a.B * (DET ? (ntiles + a.tpu - 1) / a.tpu : ntiles);
 }
 
 template <int K, bool DET>
@@ -1249,20 +1408,20 @@ int launch_fwd(const Args& a, float* out_a, float* out_b, float* out_l,
                int sms, cudaStream_t s) {
   constexpr int TQ = Tile<K, false>::TQ;
   const size_t bytes = smem_bytes(K, TQ, a.N, false);
-  int grid = 0, ntiles = 0, ipb = 0;
-  if (int err = geometry<K, false, DET>(a, sms, grid, ntiles, ipb))
+  int grid = 0;
+  if (int err = prepare(dice_lava_fwd_kernel<K, DET>, bytes, sms,
+                        work_items<K, false, DET>(a), grid))
     return err;
-  Args d = a;
-  d.ipb = ipb;
-  if (DET && det_floats<false>(a, K, grid, ipb) > a.ws_cap)
-    return static_cast<int>(cudaErrorInvalidValue);
-  dice_lava_fwd_kernel<K, DET><<<grid, kThreads, bytes, s>>>(d, out_a, out_b,
+  if constexpr (DET) {   // cooperative: its grid barrier needs every block
+    Args d = a;
+    void* args[] = {&d, &out_a, &out_b, &out_l};
+    return static_cast<int>(cudaLaunchCooperativeKernel(
+        reinterpret_cast<const void*>(dice_lava_fwd_kernel<K, true>), grid,
+        kThreads, args, bytes, s));
+  }
+  dice_lava_fwd_kernel<K, DET><<<grid, kThreads, bytes, s>>>(a, out_a, out_b,
                                                               out_l);
-  if (cudaError_t e = cudaGetLastError()) return static_cast<int>(e);
-  if constexpr (DET)
-    return det_reduce(d, out_a, out_b, out_l, a.lead ? 3 : 1, a.P, 3 * a.P,
-                      ntiles, grid, ipb, s);
-  return 0;
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <int K, bool DET>
@@ -1271,20 +1430,20 @@ int launch_bwd(const Args& a, const float* ga, const float* gb,
                cudaStream_t s) {
   constexpr int TQ = Tile<K, true>::TQ;
   const size_t bytes = smem_bytes(K, TQ, a.N, true);
-  int grid = 0, ntiles = 0, ipb = 0;
-  if (int err = geometry<K, true, DET>(a, sms, grid, ntiles, ipb))
+  int grid = 0;
+  if (int err = prepare(dice_lava_bwd_kernel<K, DET>, bytes, sms,
+                        work_items<K, true, DET>(a), grid))
     return err;
-  Args d = a;
-  d.ipb = ipb;
-  if (DET && det_floats<true>(a, K, grid, ipb) > a.ws_cap)
-    return static_cast<int>(cudaErrorInvalidValue);
-  dice_lava_bwd_kernel<K, DET><<<grid, kThreads, bytes, s>>>(d, ga, gb, gl,
+  if constexpr (DET) {   // as in launch_fwd
+    Args d = a;
+    void* args[] = {&d, &ga, &gb, &gl, &dk, &dm};
+    return static_cast<int>(cudaLaunchCooperativeKernel(
+        reinterpret_cast<const void*>(dice_lava_bwd_kernel<K, true>), grid,
+        kThreads, args, bytes, s));
+  }
+  dice_lava_bwd_kernel<K, DET><<<grid, kThreads, bytes, s>>>(a, ga, gb, gl,
                                                               dk, dm);
-  if (cudaError_t e = cudaGetLastError()) return static_cast<int>(e);
-  if constexpr (DET)
-    return det_reduce(d, dk, nullptr, nullptr, 1, a.P * K, a.P * K, ntiles,
-                      grid, ipb, s);
-  return 0;
+  return static_cast<int>(cudaGetLastError());
 }
 
 Args make_args(const void* kernels, const void* feat, const void* onehot,
@@ -1295,14 +1454,14 @@ Args make_args(const void* kernels, const void* feat, const void* onehot,
               static_cast<const float*>(onehot),
               static_cast<const float*>(targets),
               static_cast<const float*>(grad), B, P, N, HW, N, true,
-              nullptr, 0, 0};
+              nullptr, nullptr, 0};
 }
 
 int chunks_of(int N) { return (N + kMaxN - 1) / kMaxN; }
 
 // launch(chunk) for each chunk of a's instances: even chunks of at most
-// kMaxN, the first one the lead (see the header). Stops at the first
-// error.
+// kMaxN, the first one the lead (see the header), each with its own grid
+// barrier. Stops at the first error.
 template <typename Launch>
 int per_chunk(const Args& a, Launch launch) {
   const int chunks = chunks_of(a.N);
@@ -1313,6 +1472,7 @@ int per_chunk(const Args& a, Launch launch) {
     c.targets = a.targets + (size_t)n0 * a.HW;
     c.N = a.N - n0 < per ? a.N - n0 : per;
     c.lead = n0 == 0;
+    if (a.barrier) c.barrier = a.barrier + n0 / per;
     if (int err = launch(c)) return err;
   }
   return 0;
@@ -1348,31 +1508,25 @@ int bwd_all(const Args& args, int K, const float* pa, const float* pb,
   });
 }
 
-// The most floats any chunk's deterministic launch needs for its partials.
-template <bool BWD>
-long long det_workspace(const Args& args, int K, int sms) {
-  long long need = 0;
-  const int err = per_chunk(args, [&](const Args& a) {
-    int grid = 0, ntiles = 0, ipb = 0, e;
-    switch (K) {
-      case 32: e = geometry<32, BWD, true>(a, sms, grid, ntiles, ipb); break;
-      case 128: e = geometry<128, BWD, true>(a, sms, grid, ntiles, ipb); break;
-      default: e = geometry<256, BWD, true>(a, sms, grid, ntiles, ipb);
-    }
-    if (e) return e;
-    const long long n = det_floats<BWD>(a, K, grid, ipb);
-    need = n > need ? n : need;
-    return 0;
-  });
-  return err ? -err : need;
+// The deterministic variants' arguments: tiles_per_unit in [1, tiles of
+// an image], and room in ws for one slot a unit (see the header).
+bool valid_det(const Args& a, int K, bool backward, long long ws_floats) {
+  const int tq = tile_width(K, backward);
+  const int ntiles = (a.HW + tq - 1) / tq;
+  if (a.tpu < 1 || a.tpu > ntiles || a.ws == nullptr ||
+      a.barrier == nullptr)
+    return false;
+  const long long units = (long long)a.B * ((ntiles + a.tpu - 1) / a.tpu);
+  const long long slot = backward ? (long long)kMaxP * (K > 128 ? K : 128)
+                                  : 3LL * kMaxP;
+  return units * slot <= ws_floats;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Kernel launches of one call of any function below for N instances (the
-// deterministic variants' reductions not counted).
+// Kernel launches of one call of any function below for N instances.
 int prn_dice_lava_launches(int N) { return N >= 1 ? chunks_of(N) : 0; }
 
 // All tensors f32, contiguous, on one card, 16-byte aligned. P <= 128,
@@ -1410,34 +1564,30 @@ int prn_dice_lava_bwd(const void* kernels, const void* feat,
       static_cast<float*>(dm), grid_x, static_cast<cudaStream_t>(stream));
 }
 
-// Floats of the partials that the deterministic variant of the forward
-// (backward != 0: of the backward) needs at this shape, or minus the
-// cudaError_t of a failed query.
-long long prn_dice_lava_det_workspace(int B, int P, int K, int N, int HW,
-                                      int grid_x, int backward) {
-  if (!valid_shape(B, P, K, N, HW))
-    return -static_cast<long long>(cudaErrorInvalidValue);
-  const Args a = make_args(nullptr, nullptr, nullptr, nullptr, nullptr, B, P,
-                           N, HW);
-  return backward ? det_workspace<true>(a, K, grid_x)
-                  : det_workspace<false>(a, K, grid_x);
-}
-
 // The deterministic variants: the arguments of prn_dice_lava_fwd and
-// prn_dice_lava_bwd, and ws, 16-byte aligned, of ws_floats floats (at least
-// what prn_dice_lava_det_workspace gives). The same outputs, summed in an
-// order fixed by the shape and the card's SM count.
+// prn_dice_lava_bwd, and ws (ws_floats floats, 16-byte aligned: one slot
+// a unit, 3 x 128 floats in the forward, 128 x max(K, 128) in the
+// backward), barriers (an int a launch, prn_dice_lava_launches(N) of
+// them, zeroed) and tiles_per_unit (see the header;
+// ops/dice_lava.py::det_plan). The outputs need no zeroing: the first
+// chunk stores every element of a, b, lava or dk. The same outputs as the
+// atomic kernels, summed in an order fixed by B, K, HW and
+// tiles_per_unit, whatever grid_x (at most the card's SM count: the
+// launch is cooperative).
 int prn_dice_lava_fwd_det(const void* kernels, const void* feat,
                           const void* onehot, const void* targets,
                           const void* grad, void* out_a, void* out_b,
-                          void* out_l, void* ws, long long ws_floats, int B,
-                          int P, int K, int N, int HW, int grid_x,
-                          void* stream) {
+                          void* out_l, void* ws, long long ws_floats,
+                          void* barriers, int tiles_per_unit, int B, int P,
+                          int K, int N, int HW, int grid_x, void* stream) {
   if (!valid_shape(B, P, K, N, HW))
     return static_cast<int>(cudaErrorInvalidValue);
   Args a = make_args(kernels, feat, onehot, targets, grad, B, P, N, HW);
   a.ws = static_cast<float*>(ws);
-  a.ws_cap = ws_floats;
+  a.barrier = static_cast<int*>(barriers);
+  a.tpu = tiles_per_unit;
+  if (!valid_det(a, K, false, ws_floats))
+    return static_cast<int>(cudaErrorInvalidValue);
   return fwd_all<true>(a, K, static_cast<float*>(out_a),
                        static_cast<float*>(out_b), static_cast<float*>(out_l),
                        grid_x, static_cast<cudaStream_t>(stream));
@@ -1447,13 +1597,17 @@ int prn_dice_lava_bwd_det(const void* kernels, const void* feat,
                           const void* onehot, const void* targets,
                           const void* grad, const void* ga, const void* gb,
                           const void* gl, void* dk, void* dm, void* ws,
-                          long long ws_floats, int B, int P, int K, int N,
+                          long long ws_floats, void* barriers,
+                          int tiles_per_unit, int B, int P, int K, int N,
                           int HW, int grid_x, void* stream) {
   if (!valid_shape(B, P, K, N, HW))
     return static_cast<int>(cudaErrorInvalidValue);
   Args a = make_args(kernels, feat, onehot, targets, grad, B, P, N, HW);
   a.ws = static_cast<float*>(ws);
-  a.ws_cap = ws_floats;
+  a.barrier = static_cast<int*>(barriers);
+  a.tpu = tiles_per_unit;
+  if (!valid_det(a, K, true, ws_floats))
+    return static_cast<int>(cudaErrorInvalidValue);
   return bwd_all<true>(a, K, static_cast<const float*>(ga),
                        static_cast<const float*>(gb),
                        static_cast<const float*>(gl), static_cast<float*>(dk),

@@ -15,26 +15,74 @@ instead of saving the (B, P, HW) probabilities. Each sends a CPU tensor to
 its plain PyTorch version (``fused_dice_lava_plain``,
 ``fused_dice_lava_bwd_plain``) and a CUDA tensor to its kernel in
 ``csrc/dice_lava.cu``: with ``deterministic=True`` to the kernel's variant
-that sums its blocks' partials in a fixed order instead of with float
-atomics, so that a run can be reproduced bit for bit (the plain versions
-are deterministic already). Like the JAX package's, the backward gives
-gradients to the kernels and the mask features only.
+that sums the partials of fixed units of tiles in a fixed order, in the
+same launch, instead of with float atomics, so that a run can be
+reproduced bit for bit (the plain versions are deterministic already).
+Like the JAX package's, the backward gives gradients to the kernels and
+the mask features only.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
 from planerecnet_tpu_torch.ops import cuda_build
+from planerecnet_tpu_torch.ops.dcn_scatter import _unfilled
 
 # What the kernels take (see csrc/dice_lava.cu): the K of the presets and
 # up to 128 slots; any number of instances (one launch per 63).
 _KERNEL_K = (32, 128, 256)
 _MAX_P = 128
+# The deterministic variants cut each image's pixel tiles into units and
+# sum the units' partials in unit order: about this many units a batch,
+# whatever the card (at B = 8, 16 an image: one unit a block on an H100's
+# 132 SMs).
+DET_UNITS = 128
+
+
+def tile_width(k: int, backward: bool) -> int:
+    """Pixels of a kernel's tile (``Tile`` in the source)."""
+    return 16 if k >= 256 else (32 if backward else 64)
+
+
+class DetPlan(NamedTuple):
+    """The units of a deterministic launch: each image's ``tiles`` pixel
+    tiles of ``tile`` pixels cut into ``units`` of ``tiles_per_unit``
+    consecutive tiles (the last one shorter), numbered image-major."""
+    tile: int
+    tiles: int
+    tiles_per_unit: int
+    units: int          # an image
+
+    def unit_tiles(self, u: int) -> range:
+        """The tiles of an image's unit ``u``."""
+        t0 = u * self.tiles_per_unit
+        return range(t0, min(t0 + self.tiles_per_unit, self.tiles))
+
+    def slot_floats(self, k: int, backward: bool) -> int:
+        """Floats of a unit's partial: a, b, lava of 128 slots, or 256
+        threads' dk accumulators (64 at K <= 128, K / 2 at K = 256)."""
+        return _MAX_P * max(k, 128) if backward else 3 * _MAX_P
+
+    def workspace_floats(self, b: int, k: int, backward: bool) -> int:
+        return b * self.units * self.slot_floats(k, backward)
+
+
+@functools.lru_cache(maxsize=None)
+def det_plan(b: int, k: int, hw: int, backward: bool) -> DetPlan:
+    """The deterministic variants' units for B images of HW pixels at
+    kernel width K: about ``DET_UNITS`` in all, at most one a tile. The
+    order of every sum follows from the plan, which depends on the shape
+    only (not on the card's SM count)."""
+    tile = tile_width(k, backward)
+    tiles = -(-hw // tile)
+    want = max(1, min(tiles, -(-DET_UNITS // b)))
+    per = -(-tiles // want)
+    return DetPlan(tile, tiles, per, -(-tiles // per))
 
 
 def _logits_targets(kernels, mask_feat, onehot, targets):
@@ -76,16 +124,16 @@ def _library() -> ctypes.CDLL:
                                       + [ctypes.c_int] * 6
                                       + [ctypes.c_void_p])
     lib.prn_dice_lava_fwd_det.argtypes = ([ctypes.c_void_p] * 9
-                                          + [ctypes.c_longlong]
-                                          + [ctypes.c_int] * 6
+                                          + [ctypes.c_longlong,
+                                             ctypes.c_void_p]
+                                          + [ctypes.c_int] * 7
                                           + [ctypes.c_void_p])
     lib.prn_dice_lava_bwd_det.argtypes = ([ctypes.c_void_p] * 11
-                                          + [ctypes.c_longlong]
-                                          + [ctypes.c_int] * 6
+                                          + [ctypes.c_longlong,
+                                             ctypes.c_void_p]
+                                          + [ctypes.c_int] * 7
                                           + [ctypes.c_void_p])
     lib.prn_dice_lava_launches.argtypes = [ctypes.c_int]
-    lib.prn_dice_lava_det_workspace.argtypes = [ctypes.c_int] * 7
-    lib.prn_dice_lava_det_workspace.restype = ctypes.c_longlong
     for fn in (lib.prn_dice_lava_fwd, lib.prn_dice_lava_bwd,
                lib.prn_dice_lava_fwd_det, lib.prn_dice_lava_bwd_det,
                lib.prn_dice_lava_launches):
@@ -93,19 +141,17 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-@functools.lru_cache(maxsize=None)
-def _det_workspace_floats(b, p, k, n, hw, grid_x, backward) -> int:
-    """Floats of the partials of a deterministic launch at this shape."""
-    need = _library().prn_dice_lava_det_workspace(b, p, k, n, hw, grid_x,
-                                                  int(backward))
-    cuda_build.check_launch(int(-need) if need < 0 else 0,
-                            "dice_lava workspace query")
-    return int(need)
-
-
-def _workspace(shape, grid_x, backward, device) -> torch.Tensor:
-    return torch.empty(max(_det_workspace_floats(*shape, grid_x, backward),
-                           4), dtype=torch.float32, device=device)
+def _det_buffers(b, k, n, hw, backward, device):
+    """A deterministic call's plan, its workspace (a slot a unit, written
+    before it is read: no fill) and its launches' grid barriers (an int
+    each, zeroed)."""
+    plan = det_plan(b, k, hw, backward)
+    with _unfilled():
+        ws = torch.empty(plan.workspace_floats(b, k, backward),
+                         dtype=torch.float32, device=device)
+    barriers = torch.zeros(_library().prn_dice_lava_launches(n),
+                           dtype=torch.int32, device=device)
+    return plan, ws, barriers
 
 
 def _check_args(kernels, mask_feat, onehot, targets, grad_low):
@@ -138,7 +184,8 @@ def _check_cuda(name, tensors):
 
 def _launch_geometry(name, p, k, device):
     """The card's SM count: the kernels' grid is persistent over (image,
-    pixel tile), as many blocks as fit on the SMs at once."""
+    pixel tile) items, or the deterministic variants' units, as many
+    blocks as fit on the SMs at once."""
     if k not in _KERNEL_K or p > _MAX_P:
         raise ValueError(f"{name}: the kernel takes K in {_KERNEL_K} and "
                          f"P <= {_MAX_P}, not K={k}, P={p}")
@@ -160,15 +207,23 @@ def dice_lava_fwd(kernels, mask_feat, onehot, targets, grad_low,
     _check_cuda("dice_lava_fwd", ins)
     b, p, k, n, hw = shape
     grid_x = _launch_geometry("dice_lava_fwd", p, k, kernels.device)
-    out = torch.zeros((3, b, p), dtype=torch.float32, device=kernels.device)
+    if deterministic:     # the variant stores every element
+        plan, ws, barriers = _det_buffers(b, k, n, hw, False,
+                                          kernels.device)
+        with _unfilled():
+            out = torch.empty((3, b, p), dtype=torch.float32,
+                              device=kernels.device)
+    else:
+        out = torch.zeros((3, b, p), dtype=torch.float32,
+                          device=kernels.device)
     outs = (out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr())
     with torch.cuda.device(kernels.device):
         stream = torch.cuda.current_stream(kernels.device).cuda_stream
         if deterministic:
-            ws = _workspace(shape, grid_x, False, kernels.device)
             err = _library().prn_dice_lava_fwd_det(
                 *(t.data_ptr() for t in ins), *outs, ws.data_ptr(),
-                ws.numel(), b, p, k, n, hw, grid_x, stream)
+                ws.numel(), barriers.data_ptr(), plan.tiles_per_unit, b, p,
+                k, n, hw, grid_x, stream)
         else:
             err = _library().prn_dice_lava_fwd(
                 *(t.data_ptr() for t in ins), *outs, b, p, k, n, hw, grid_x,
@@ -199,15 +254,25 @@ def dice_lava_bwd(kernels, mask_feat, onehot, targets, grad_low, ga, gb, gl,
     ins = (kernels, mask_feat, onehot, targets, grad_low, ga, gb, gl)
     _check_cuda("dice_lava_bwd", ins)
     grid_x = _launch_geometry("dice_lava_bwd", p, k, kernels.device)
-    dk = torch.zeros((b, p, k), dtype=torch.float32, device=kernels.device)
-    dm = torch.empty((b, hw, k), dtype=torch.float32, device=kernels.device)
+    if deterministic:     # the variant stores every element of dk
+        plan, ws, barriers = _det_buffers(b, k, n, hw, True,
+                                          kernels.device)
+        with _unfilled():
+            dk = torch.empty((b, p, k), dtype=torch.float32,
+                             device=kernels.device)
+    else:
+        dk = torch.zeros((b, p, k), dtype=torch.float32,
+                         device=kernels.device)
+    with _unfilled():     # both kernels store every element of dm
+        dm = torch.empty((b, hw, k), dtype=torch.float32,
+                         device=kernels.device)
     with torch.cuda.device(kernels.device):
         stream = torch.cuda.current_stream(kernels.device).cuda_stream
         if deterministic:
-            ws = _workspace(shape, grid_x, True, kernels.device)
             err = _library().prn_dice_lava_bwd_det(
                 *(t.data_ptr() for t in ins), dk.data_ptr(), dm.data_ptr(),
-                ws.data_ptr(), ws.numel(), b, p, k, n, hw, grid_x, stream)
+                ws.data_ptr(), ws.numel(), barriers.data_ptr(),
+                plan.tiles_per_unit, b, p, k, n, hw, grid_x, stream)
         else:
             err = _library().prn_dice_lava_bwd(
                 *(t.data_ptr() for t in ins), dk.data_ptr(), dm.data_ptr(),

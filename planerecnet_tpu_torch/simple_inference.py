@@ -421,10 +421,9 @@ def build_runner(args) -> PlaneRecNetRunner:
         net.load_weights(args.trained_model)
     else:
         backbone_path = os.path.join("weights", cfg.backbone.path)
-        found = os.path.exists(backbone_path)
-        net.init_weights(backbone_path if found else None)
-        print(f"Fresh weights, backbone from {backbone_path}" if found
-              else "Fresh weights")
+        net.init_weights(backbone_path if os.path.exists(backbone_path)
+                         else None)
+        print(cfg.backbone.name)
     return net
 
 

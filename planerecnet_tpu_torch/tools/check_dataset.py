@@ -27,6 +27,8 @@ from planerecnet_tpu_torch.ops.geometry import (get_points_coordinate,
                                                 point_to_plane_error)
 from planerecnet_tpu_torch.runner import resolve_device
 
+SEED = 0        # of the augmentation's generator (the JAX tool's is unseeded)
+
 
 def main(argv: Optional[List[str]] = None) -> List[float]:
     """Run the check; returns each image's mean point-to-plane error."""
@@ -36,8 +38,6 @@ def main(argv: Optional[List[str]] = None) -> List[float]:
     parser.add_argument("--split", default="valid",
                         choices=["train", "valid", "eval"])
     parser.add_argument("--max_images", default=5000, type=int)
-    parser.add_argument("--seed", default=0, type=int,
-                        help="Seed of the augmentation's generator.")
     parser.add_argument("--device", default="cuda",
                         help="cuda (default; raises where there is no "
                              "card) or cpu.")
@@ -47,9 +47,9 @@ def main(argv: Optional[List[str]] = None) -> List[float]:
     cfg = set_cfg(args.config)
     if args.dataset is not None:
         cfg = set_dataset(cfg, args.dataset)
-    print(cfg.name, cfg.backbone.path)
+    print(cfg.backbone.name, cfg.backbone.path)
     dataset = build_dataset(cfg, args.split, transform=SSDAugmentation(
-        cfg, rng=np.random.RandomState(args.seed)))
+        cfg, rng=np.random.RandomState(SEED)))
 
     errors = []
     for idx in range(min(len(dataset), args.max_images)):

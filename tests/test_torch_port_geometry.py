@@ -1,7 +1,7 @@
 """The port's ``ops/geometry.py`` against ``planerecnet_tpu.ops.geometry``
 on the CPU, the properties that ``tests/test_geometry.py`` checks of the
 JAX functions, and the port's ``tools/check_dataset.py`` over a synthetic
-ScanNet tree.
+ScanNet tree, whose first line is the JAX tool's.
 
 Same numpy inputs through both packages. Tolerances: back-projection and
 the point-to-plane error 1e-6 relative (one f32 product and sum each);
@@ -9,8 +9,11 @@ normals 1e-4 (a 3x3 solve per pixel in f32 by two LAPACK paths); the PCA
 normal up to its sign, which each SVD chooses for itself.
 """
 
+import importlib.util
 import io
+import sys
 from contextlib import redirect_stdout
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -172,3 +175,34 @@ def test_check_dataset_over_a_synthetic_tree(tmp_path, monkeypatch):
             pts, jnp.asarray(m.astype(bool)), jnp.asarray(p[:3]),
             jnp.asarray(p[3]))) for m, p in zip(inst["masks"], planes))
         assert got == pytest.approx(want / len(planes), rel=1e-5, abs=1e-7)
+
+
+@pytest.mark.parametrize("config", ["PlaneRecNet_50_config",
+                                    "PlaneRecNet_101_config"])
+def test_check_dataset_prints_what_the_jax_tool_prints(tmp_path, monkeypatch,
+                                                       config):
+    """The port's first line (the backbone's name and weights file) is the
+    JAX tool's (``tools/check_dataset.py``), run on the same tree; the
+    port, like it, takes no ``--seed``."""
+    synth_scenes.generate_dataset(str(tmp_path), 0, 1, 0, h=48, w=64, seed=2,
+                                  min_area=30, progress=False)
+    monkeypatch.chdir(tmp_path)
+    spec = importlib.util.spec_from_file_location(
+        "jax_check_dataset",
+        Path(__file__).resolve().parent.parent / "tools" / "check_dataset.py")
+    jax_tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(jax_tool)
+    monkeypatch.setattr(sys, "argv", ["check_dataset.py", "--config", config,
+                                      "--max_images", "1"])
+    want, got = io.StringIO(), io.StringIO()
+    with redirect_stdout(want):
+        jax_tool.main()
+    with redirect_stdout(got):
+        check_dataset.main(["--config", config, "--device", "cpu",
+                            "--max_images", "1"])
+    first = want.getvalue().splitlines()[0]
+    assert got.getvalue().splitlines()[0] == first
+    assert first.split()[0].startswith("ResNet")
+    with pytest.raises(SystemExit), redirect_stdout(io.StringIO()):
+        check_dataset.main(["--config", config, "--device", "cpu",
+                            "--seed", "1"])

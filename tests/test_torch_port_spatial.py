@@ -24,19 +24,18 @@ that XLA SPMD inserts in the JAX package is written by hand
   single-device ``apply`` on the same weights (carried across by
   ``utils/weights.py::from_jax_variables``): 1e-4, as
   ``tests/test_spmd.py``. On 4 ranks C5 (2 rows) is whole and C4 is cut
-  into 1-row shards.
-* The tiny preset's training step at 4x64x64 on a (2, 2) and a (1, 4)
-  mesh, BatchNorm training (synced), against the JAX package's unsharded
-  step and the port's own (4, 1): losses rel 2e-4 / abs 1e-5 and
-  parameters within 1e-4, as ``tests/test_trainer.py:172-195``; and,
-  with BatchNorm frozen, every gradient leaf within 2e-4 of its scale of
-  the port's one-process step (train-mode BatchNorm at this size makes
-  the f32 gradient itself ill-conditioned, see
-  ``tests/test_torch_port_trainer.py``). At 32x32, the JAX test's size,
-  the port refuses the coarsest level, 1x1 there (the reflection pad of
-  one row, a GroupNorm of one value a group; ROADMAP Queue 3), so the
-  step is held at 64x64, on the batch recipe of
-  ``tests/test_torch_port_trainer.py``. A (2, 2) checkpoint loads in one
+  into 1-row shards. The same at 2x32x32 on the (1, 4) and (2, 2) meshes,
+  where the coarsest level is 1x1.
+* The tiny preset's training step on a (2, 2) and a (1, 4) mesh,
+  BatchNorm training (synced), against the JAX package's unsharded step
+  and the port's own (4, 1): losses rel 2e-4 / abs 1e-5 and parameters
+  within 1e-4, as ``tests/test_trainer.py:172-195``; at that test's size
+  and batch (4x32x32, ``_tiny_batch``), and at 4x64x64 on the batch
+  recipe of ``tests/test_torch_port_trainer.py``. At 64x64, with
+  BatchNorm frozen, every gradient leaf within 2e-4 of its scale of the
+  port's one-process step (train-mode BatchNorm at this size makes the
+  f32 gradient itself ill-conditioned, see
+  ``tests/test_torch_port_trainer.py``). A (2, 2) checkpoint loads in one
   process.
 * ``make_mesh`` refuses a grid that is not the world, and the spatial
   axis a height it cannot split.
@@ -78,7 +77,8 @@ LOSS_TOL = dict(rel=2e-4, abs=1e-5)            # tests/test_trainer.py
 PARAM_TOL = 1e-4
 LEAF_TOL = 2e-4
 SIZE = 64
-FWD_CFG = JaxTiny.copy(dict(max_size=SIZE))
+SMALL = 32                # the JAX test's size; its coarsest level is 1x1
+FWD_CFGS = {n: JaxTiny.copy(dict(max_size=n)) for n in (SIZE, SMALL)}
 STEP_CFG = JaxTiny.copy(dict(max_instances=2, max_positives=16,
                              vnl_samples=32))
 
@@ -105,9 +105,11 @@ def _jax_step_state(flat):
         rng=jax.random.split(jax.random.PRNGKey(0))[1])
 
 
-def _step_batch():
-    """``tests/test_torch_port_trainer.py::_batch(seed=2)``'s recipe at 4
-    images."""
+def _step_batch(size=SIZE):
+    """At 64x64 ``tests/test_torch_port_trainer.py::_batch(seed=2)``'s
+    recipe at 4 images; at 32x32 the JAX test's batch."""
+    if size == SMALL:
+        return _tiny_batch(4, SMALL, SMALL)
     batch = _tiny_batch(4, SIZE, SIZE)
     batch["masks"][1, 1, 30:60, 10:50] = 1
     batch["boxes"][1, 1] = [10, 30, 50, 60]
@@ -118,19 +120,19 @@ def _step_batch():
 
 
 @functools.lru_cache(maxsize=None)
-def _vnl():
+def _vnl(size=SIZE):
     """The VNL triplets the JAX step draws from its key."""
     state = _jax_step_state(jax_variables(STEP_CFG))
-    return jax_vnl_indices(STEP_CFG, _step_batch(),
+    return jax_vnl_indices(STEP_CFG, _step_batch(size),
                            jax.random.fold_in(state.rng, state.step))
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_step():
-    """The JAX package's unsharded step at 4x64x64: (losses, params)."""
+def _jax_step(size=SIZE):
+    """The JAX package's unsharded step at 4 x size^2: (losses, params)."""
     state = _jax_step_state(jax_variables(STEP_CFG))
     grads, new_bs, losses = jax.jit(functools.partial(
-        jtrainer.grad_step, cfg=STEP_CFG))(state, _step_batch())
+        jtrainer.grad_step, cfg=STEP_CFG))(state, _step_batch(size))
     state = jax.jit(jtrainer.apply_grads)(state, grads, new_bs,
                                           losses["total"])
     return ({k: float(v) for k, v in losses.items()},
@@ -154,23 +156,30 @@ def _params(state_dict):
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
     """n -> the results of each rank of an n-rank spawn. Both spawns (2
-    ranks, 4 ranks with the training steps) start at the first request,
-    and the JAX step is computed while they run."""
-    fwd = (port_cfg(FWD_CFG), jax_variables(FWD_CFG), images(seed=1))
+    ranks, 4 ranks with the training steps and the 32x32 runs) start at
+    the first request, and the JAX steps are computed while they run."""
+    fwd = (port_cfg(FWD_CFGS[SIZE]), jax_variables(FWD_CFGS[SIZE]),
+           images(seed=1))
     steps = (_step_cfgs(), jax_variables(STEP_CFG), _step_batch(), _vnl())
+    small = ((port_cfg(FWD_CFGS[SMALL]), jax_variables(FWD_CFGS[SMALL]),
+              images(size=SMALL, seed=1)),
+             ({False: _step_cfgs()[False]}, jax_variables(STEP_CFG),
+              _step_batch(SMALL), _vnl(SMALL)))
     ctx = mp.get_context("spawn")
     spawns = {}
     for n in (2, 4):
         out_dir = str(tmp_path_factory.mktemp(f"spatial{n}"))
         port = _free_port()
         procs = [ctx.Process(target=rank_main, args=(
-            r, n, port, out_dir, fwd, steps if n == 4 else None))
+            r, n, port, out_dir, fwd, steps if n == 4 else None,
+            small if n == 4 else None))
             for r in range(n)]
         for p in procs:
             p.start()
         spawns[n] = (procs, out_dir)
     try:
         _jax_step()
+        _jax_step(SMALL)
     finally:
         results = {}
         for n, (procs, out_dir) in spawns.items():
@@ -190,10 +199,11 @@ def ranks(tmp_path_factory):
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_forward():
-    model = JaxPlaneRecNet(FWD_CFG)
+def _jax_forward(size=SIZE):
+    model = JaxPlaneRecNet(FWD_CFGS[size])
     return jax.jit(lambda v, x: model.apply(v, x, train=False))(
-        nest(jax_variables(FWD_CFG)), jnp.asarray(images(seed=1)))
+        nest(jax_variables(FWD_CFGS[size])),
+        jnp.asarray(images(size=size, seed=1)))
 
 
 @functools.lru_cache(maxsize=None)
@@ -285,15 +295,17 @@ def test_deform_conv2d_row_windows_add_up(stride):
                           stride=stride, row0=ho - 1)
 
 
-@pytest.mark.parametrize("n,run", [(2, "forward"), (4, "forward"),
-                                   (4, "forward_2d")],
-                         ids=["1x2", "1x4", "2x2"])
-def test_spatial_forward_matches_jax(ranks, n, run):
+@pytest.mark.parametrize("n,run,size", [
+    (2, "forward", SIZE), (4, "forward", SIZE), (4, "forward_2d", SIZE),
+    (4, "forward", SMALL), (4, "forward_2d", SMALL)],
+    ids=["1x2", "1x4", "2x2", "1x4-32x32", "2x2-32x32"])
+def test_spatial_forward_matches_jax(ranks, n, run, size):
     """``jit_forward(spatial=True)`` on a (1, 2), a (1, 4) and a (2, 2)
     mesh (one image a data index): every rank's outputs of the whole
     batch against the JAX package's single-device apply."""
-    want = _jax_forward()
-    for got in [r[run] for r in ranks(n)]:
+    want = _jax_forward(size)
+    for got in [(r if size == SIZE else r["small"])[run]
+                for r in ranks(n)]:
         for key in ("cate_preds", "kernel_preds"):
             for a, b in zip(got[key], want[key]):
                 np.testing.assert_allclose(a, np.asarray(b), err_msg=key,
@@ -323,11 +335,14 @@ def test_profile_spatial_counts_the_exchanged_bytes(ranks, monkeypatch):
     assert got["value"] > 0
 
 
-@pytest.mark.parametrize("mesh", [(2, 2), (1, 4)], ids=["2x2", "1x4"])
-def test_spatial_step_matches_jax_and_data_parallel(ranks, mesh):
-    want_losses, want_params = _jax_step()
-    one = ranks(4)[0][(4, 1)][False]
-    for got in (r[mesh][False] for r in ranks(4)):
+@pytest.mark.parametrize("mesh,size", [
+    ((2, 2), SIZE), ((1, 4), SIZE), ((2, 2), SMALL), ((1, 4), SMALL)],
+    ids=["2x2", "1x4", "2x2-32x32", "1x4-32x32"])
+def test_spatial_step_matches_jax_and_data_parallel(ranks, mesh, size):
+    want_losses, want_params = _jax_step(size)
+    runs = [r if size == SIZE else r["small"] for r in ranks(4)]
+    one = runs[0][(4, 1)][False]
+    for got in (r[mesh][False] for r in runs):
         assert set(got[0]) == set(want_losses)
         for key, want in want_losses.items():
             assert got[0][key] == pytest.approx(want, **LOSS_TOL), key

@@ -190,12 +190,14 @@ def step_results(n_data, n_spatial, cfgs, flat, batch, vnl, save_to=None):
     return out
 
 
-def rank_main(rank, n, port, out_dir, fwd, steps):
+def rank_main(rank, n, port, out_dir, fwd, steps, small=None):
     """One rank of an n-rank spawn: the op cases on the n-rank spatial
     axis, the forward on a (1, n) mesh (``fwd``: cfg, weights, images),
     and, given ``steps`` (cfgs, weights, batch, VNL triplets), the
-    forward on a (2, n / 2) mesh and the steps of ``MESHES``; saves
-    ``rank{rank}.pt`` in ``out_dir``."""
+    forward on a (2, n / 2) mesh and the steps of ``MESHES``; given
+    ``small`` ((fwd, steps) at another size), both forwards and the
+    steps again at that size (``"small"``); saves ``rank{rank}.pt`` in
+    ``out_dir``."""
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
                             world_size=n, rank=rank)
@@ -210,6 +212,13 @@ def rank_main(rank, n, port, out_dir, fwd, steps):
             save = (os.path.join(out_dir, "ckpt_2x2")
                     if grid == (2, 2) and rank == 0 else None)
             out[grid] = step_results(*grid, *steps, save_to=save)
+        if small:
+            fwd_s, steps_s = small
+            out["small"] = {
+                "forward": forward_results(mesh, *fwd_s),
+                "forward_2d": forward_results(
+                    pmesh.make_mesh("cpu", 2, n // 2), *fwd_s),
+                **{grid: step_results(*grid, *steps_s) for grid in MESHES}}
         torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
