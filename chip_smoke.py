@@ -1,4 +1,5 @@
-"""Drive the PyTorch port's inference and training paths on one CUDA card.
+"""Drive the PyTorch port's inference and training paths on one CUDA card
+(and, with ``--nccl``, on the 4 cards of one host).
 
     python3 chip_smoke.py [--profile DIR]
     python3 chip_smoke.py --dice
@@ -6,6 +7,7 @@
     python3 chip_smoke.py --paths
     python3 chip_smoke.py --spatial
     python3 chip_smoke.py --tools
+    python3 chip_smoke.py --nccl            # on a host with 4 cards
 
 ``--dice`` runs phases 1, 2 and the timed dice/lava shapes of 4 alone and
 prints no result line; ``--dcn`` runs phases 1, 2, the im2col's serving
@@ -18,12 +20,17 @@ default training step alone (no build phase, no launch checks: it calls
 only ``PlaneRecNetRunner.infer`` and ``trainer.train_step``, so it runs on
 the trees of earlier slices too) and prints no result line.
 ``--spatial`` runs phases 1, 2, the spatial windows of 4, 15 and 16
-alone and prints no result line. ``--spatial_rank DIR`` is one rank of
-phases 15-16, which launch it. ``--tools`` runs phases 1, 2, 5 (for the
+alone and prints no result line. ``--spatial_rank DIR [SPEC]`` is one
+rank of phases 15-16, which launch it (SPEC: ``SP_SPEC``'s fields as
+JSON). ``--nccl`` runs phases 1, 2 and the data and spatial axes over
+NCCL, one rank a card, on a host with 4 cards (``phase_nccl``; it
+fails on fewer) and prints ``[nccl]`` lines and no result line;
+``--step_rank DIR`` is one rank of its timed steps. ``--tools`` runs
+phases 1, 2, 5 (for the
 request times that phase 18 checks against) and 18, on a tree of 8
 training frames of its own, and prints no result line.
 
-1. device: the card's name and power limit (nvidia-smi).
+1. device: each visible card's name and power limit (nvidia-smi).
 2. build: one ``nvcc`` per source in ``planerecnet_tpu_torch/csrc/``
    (dcn_im2col, dcn_scatter, dice_lava), all started together, for sm_90a
    into ``planerecnet_tpu_torch/_build/`` (dice_lava afresh even where it
@@ -89,7 +96,8 @@ training frames of its own, and prints no result line.
    weights, batch and VNL indices on both devices, TF32 off.
 9. the CLI path: a synthetic ScanNet tree (24 train, 8 valid, 8 eval
    images at 480x640, seed 0) written by the port's ``synth_scenes``;
-   ``planerecnet_tpu_torch.train.main`` trains PRN-50 on it (batch 8,
+   ``planerecnet_tpu_torch.train.main`` trains PRN-50 on it on one card
+   (``--n_devices 1``, whatever the host has; batch 8,
    max_size 640, f32, ``--reproductablity``) for 12 steps and saves, then
    trains the same 12 steps again from scratch into another folder, then
    resumes the first run from ``latest`` for 4 more without the flag, as
@@ -313,7 +321,8 @@ def phase_device():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()
-    log(out[0])
+    for line in out:
+        log(line)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}, "
         f"{torch.cuda.device_count()} device(s)")
@@ -1653,9 +1662,10 @@ def phase_cli(card, train_ms, work):
         os.chdir(work)
         datasets.collate_batch, trainer.train_step = collate_probe, step_probe
         zero_counts()
+        # One card, whatever the host has (the CLI's default is all).
         common = ["--config", "PlaneRecNet_50_config", "--batch_size",
                   str(BATCH), "--dtype", "float32", "--no_tensorboard",
-                  "--no_autoscale"]
+                  "--no_autoscale", "--n_devices", "1"]
         first_args = common + ["--reproductablity", "--cfg_overrides",
                                json.dumps({"max_iter": CLI_ITERS})]
         t0 = time.perf_counter()
@@ -1683,15 +1693,8 @@ def phase_cli(card, train_ms, work):
                                  f"{CLI_ITERS}")
         if len(steps) != 2 * CLI_ITERS + CLI_RESUME:
             raise AssertionError(f"{len(steps)} steps through the CLI")
-        with np.load(first["checkpoint"]) as a, \
-                np.load(again["checkpoint"]) as b:
-            if sorted(a.files) != sorted(b.files):
-                raise AssertionError("--reproductablity: the two runs' "
-                                     "checkpoints hold other arrays")
-            differ = [k for k in a.files
-                      if a[k].dtype != b[k].dtype or a[k].shape != b[k].shape
-                      or a[k].tobytes() != b[k].tobytes()]
-            n_arrays = len(a.files)
+        differ, n_arrays = differing_arrays(first["checkpoint"],
+                                           again["checkpoint"])
         if differ:
             raise AssertionError(f"--reproductablity: {len(differ)} of "
                                  f"{n_arrays} checkpoint arrays differ "
@@ -2239,23 +2242,43 @@ def dp_probe(log_path):
     return rows
 
 
-def dp_run(work, name, nproc, iters, site):
+def dp_args(name, batch, iters):
+    """Phase 13's train CLI arguments: a global ``batch``, ``iters``
+    steps, a checkpoint every DP_STEPS into ``name/``."""
+    return ["--config", DP_CONFIG, "--batch_size", str(batch), "--dtype",
+            "float32", "--no_tensorboard", "--no_autoscale",
+            "--reproductablity", "--validation_epoch", "0",
+            "--cfg_overrides", json.dumps(dict(DP_OVERRIDES, max_iter=iters)),
+            "--save_interval", str(DP_STEPS), "--save_folder", name + "/"]
+
+
+def dp_run(work, name, nproc, iters, site, batch=12, backend="gloo",
+           cards=None, timeout=DP_TIMEOUT):
     """Launch ``nproc`` ranks of the train CLI from ``work`` (the site
-    directory ``site`` on PYTHONPATH) for ``iters`` steps, a checkpoint
+    directory ``site`` on PYTHONPATH; ``cards`` the visible cards, all by
+    default) for ``iters`` steps of a global ``batch``, a checkpoint
     every DP_STEPS; returns (the rank logs, the checkpoints written)."""
     import os
     from planerecnet_tpu_torch.tools.run_multihost import launch
-    args = ["--config", DP_CONFIG, "--batch_size", "12", "--dtype",
-            "float32", "--no_tensorboard", "--no_autoscale",
-            "--reproductablity", "--validation_epoch", "0", "--cfg_overrides",
-            json.dumps(dict(DP_OVERRIDES, max_iter=iters)), "--save_interval",
-            str(DP_STEPS), "--save_folder", name + "/"]
-    logs = launch(nproc, args, platform="cuda", backend="gloo",
-                  log_dir=os.path.join(work, name + "_logs"),
-                  timeout=DP_TIMEOUT,
-                  extra_env={"PRN_DEBUG_BATCH_SUM": "1", "PYTHONPATH": site})
+    env = {"PRN_DEBUG_BATCH_SUM": "1", "PYTHONPATH": site}
+    if cards is not None:
+        env["CUDA_VISIBLE_DEVICES"] = cards
+    logs = launch(nproc, dp_args(name, batch, iters)
+                  + ["--n_devices", str(nproc)], platform="cuda",
+                  backend=backend, log_dir=os.path.join(work, name + "_logs"),
+                  timeout=timeout, extra_env=env)
     folder = os.path.join(work, name)
     return logs, [os.path.join(folder, f) for f in sorted(os.listdir(folder))]
+
+
+def differing_arrays(path_a, path_b):
+    """The arrays of two checkpoints that differ in any bit (or are
+    missing from one), and how many there are."""
+    with np.load(path_a) as a, np.load(path_b) as b:
+        keys = sorted(set(a.files) | set(b.files))
+        return [k for k in keys if k not in a.files or k not in b.files
+                or a[k].dtype != b[k].dtype or a[k].shape != b[k].shape
+                or a[k].tobytes() != b[k].tobytes()], len(keys)
 
 
 def dp_shares(path_a, path_b):
@@ -2300,15 +2323,7 @@ def phase_dp(card, work):
     largest share of ``DP_TOL``). Returns the launches by rank and of the
     one rank over their probed steps."""
     import os
-    det_step = launches_per_step(deterministic=True)
-    sites = {}
-    cudnn_off = "torch.backends.cudnn.enabled = False\n"
-    for name, body in (("tf32_off", ""), ("cudnn_off", cudnn_off)):
-        sites[name] = os.path.join(work, name)
-        os.makedirs(sites[name], exist_ok=True)
-        with open(os.path.join(sites[name], "sitecustomize.py"), "w") as f:
-            f.write("import torch\ntorch.backends.cudnn.allow_tf32 = False\n"
-                    + body)
+    sites = dp_sites(work)
     cwd = os.getcwd()
     os.chdir(work)
     torch.cuda.empty_cache()
@@ -2320,44 +2335,10 @@ def phase_dp(card, work):
         (one_log,), one = dp_run(work, "dp1", 1, DP_ITERS, sites["tf32_off"])
         _, yard = dp_run(work, "dp1_cudnn_off", 1, DP_STEPS,
                          sites["cudnn_off"])
-        texts = []
-        for path in logs:
-            with open(path) as f:
-                texts.append(f.read())
     finally:
         os.chdir(cwd)
-    if len(written) != DP_ITERS // DP_STEPS:
-        raise AssertionError(f"data parallel: {written} written, expected "
-                             f"{DP_ITERS // DP_STEPS} checkpoints from rank 0")
-    if any(s in texts[1] for s in ("Begin training!", "Saving state",
-                                   "Training complete.")):
-        raise AssertionError("data parallel: rank 1 printed rank 0's lines")
-    probes = [dp_probe(p) for p in logs]
-    one_probe = dp_probe(one_log)
-    if any([r[0] for r in rows] != list(range(DP_ITERS))
-           for rows in probes + [one_probe]):
-        raise AssertionError(f"data parallel: probe lines "
-                             f"{[[r[0] for r in rows] for rows in probes]}")
-    sums = [[r[3] for r in rows] for rows in probes]
-    if any(a == b for a, b in zip(*sums)):
-        raise AssertionError(f"data parallel: a step's shards coincide "
-                             f"{sums}")
-    if [a + b for a, b in zip(*sums)] != [r[3] for r in one_probe]:
-        raise AssertionError(f"data parallel: the shards {sums} do not add "
-                             f"up to the global batches "
-                             f"{[r[3] for r in one_probe]}")
-    for rank, rows in enumerate(probes + [one_probe]):
-        if any(rows[0][2].values()):
-            raise AssertionError(f"rank {rank}: launches before the first "
-                                 f"step {rows[0][2]}")
-        for i in range(DP_ITERS - 1):
-            step = {k: rows[i + 1][2][k] - rows[i][2][k] for k in det_step}
-            if step != det_step:
-                raise AssertionError(f"rank {rank} step {i}: launches "
-                                     f"{step}, expected {det_step}")
-    # The checkpoints after DP_STEPS steps (the first of each run).
-    synced, synced_leaves = dp_shares(one[0], written[0])
-    yardstick, yard_leaves = dp_shares(one[0], yard[0])
+    probes, one_probe, _ = dp_verify("data parallel", logs, one_log,
+                                     written, one, yard)
 
     def step_ms(rows):
         return [round((rows[i + 1][1] - rows[i][1]) * 1e3, 1)
@@ -2372,12 +2353,82 @@ def phase_dp(card, work):
         f"{launch_s:.1f} s for {DP_ITERS} steps; ms/step {ms:.1f} (median "
         f"of steps {DP_STEPS + 1}-{DP_ITERS - 1} of both ranks: {timed}); "
         f"one rank, 12 images a step: {step_ms(one_probe)}; {card}")
-    log(f"[dp] shards disjoint at every step and adding up to the one "
-        f"rank's (checksums {sums}); rank 0 alone wrote "
-        f"({[os.path.basename(w) for w in written]}); each rank launched "
-        f"{json.dumps(det_step)} a step. After {DP_STEPS} steps, largest "
-        f"error over the JAX tolerance (rtol {DP_TOL['rtol']}, atol "
-        f"{DP_TOL['atol']}) by group: 2 ranks against 1 "
+    return [rows[-1][2] for rows in probes], one_probe[-1][2]
+
+
+def dp_sites(work):
+    """{"tf32_off", "cudnn_off"}: site directories under ``work`` whose
+    ``sitecustomize`` turns cuDNN's TF32 off at start-up (a process
+    with it on PYTHONPATH), the second cuDNN as a whole too (the
+    yardstick)."""
+    import os
+    sites = {}
+    cudnn_off = "torch.backends.cudnn.enabled = False\n"
+    for name, body in (("tf32_off", ""), ("cudnn_off", cudnn_off)):
+        sites[name] = os.path.join(work, name)
+        os.makedirs(sites[name], exist_ok=True)
+        with open(os.path.join(sites[name], "sitecustomize.py"), "w") as f:
+            f.write("import torch\ntorch.backends.cudnn.allow_tf32 = False\n"
+                    + body)
+    return sites
+
+
+def dp_verify(what, logs, one_log, written, one, yard):
+    """Phase 13's rules for the ranks of one data-parallel run (rank
+    logs ``logs``, rank 0's checkpoints ``written``) against one rank of
+    the same program on the same global batches (``one_log``, ``one``)
+    and its cuDNN-off twin (``yard``): rank 0 alone writes and prints;
+    every rank probes each step; the ranks' batch checksums differ from
+    each other at every step and add up to the one rank's; every rank
+    launches the im2col 26 times and the deterministic variants 13/4/4 a
+    step; after DP_STEPS steps the parameters and BatchNorm statistics
+    agree within ``DP_TOL`` and the Adam moments within
+    ``DP_YARDSTICK_FACTOR`` times the yardstick's difference. Logs the
+    agreement; returns (the ranks' probes, the one rank's, the
+    checksums)."""
+    import os
+    det_step = launches_per_step(deterministic=True)
+    if len(written) != DP_ITERS // DP_STEPS:
+        raise AssertionError(f"{what}: {written} written, expected "
+                             f"{DP_ITERS // DP_STEPS} checkpoints from rank 0")
+    for rank, path in enumerate(logs[1:], 1):
+        with open(path) as f:
+            text = f.read()
+        if any(s in text for s in ("Begin training!", "Saving state",
+                                   "Training complete.")):
+            raise AssertionError(f"{what}: rank {rank} printed rank 0's "
+                                 f"lines")
+    probes = [dp_probe(p) for p in logs]
+    one_probe = dp_probe(one_log)
+    if any([r[0] for r in rows] != list(range(DP_ITERS))
+           for rows in probes + [one_probe]):
+        raise AssertionError(f"{what}: probe lines "
+                             f"{[[r[0] for r in rows] for rows in probes]}")
+    sums = [[r[3] for r in rows] for rows in probes]
+    if any(len(set(step)) < len(step) for step in zip(*sums)):
+        raise AssertionError(f"{what}: a step's shards coincide {sums}")
+    if [sum(step) for step in zip(*sums)] != [r[3] for r in one_probe]:
+        raise AssertionError(f"{what}: the shards {sums} do not add up to "
+                             f"the global batches "
+                             f"{[r[3] for r in one_probe]}")
+    for rank, rows in enumerate(probes + [one_probe]):
+        if any(rows[0][2].values()):
+            raise AssertionError(f"{what}, rank {rank}: launches before the "
+                                 f"first step {rows[0][2]}")
+        for i in range(DP_ITERS - 1):
+            step = {k: rows[i + 1][2][k] - rows[i][2][k] for k in det_step}
+            if step != det_step:
+                raise AssertionError(f"{what}, rank {rank} step {i}: "
+                                     f"launches {step}, expected {det_step}")
+    # The checkpoints after DP_STEPS steps (the first of each run).
+    synced, synced_leaves = dp_shares(one[0], written[0])
+    yardstick, yard_leaves = dp_shares(one[0], yard[0])
+    log(f"[dp] {what}, {len(logs)} ranks: shards disjoint at every step "
+        f"and adding up to the one rank's (checksums {sums}); rank 0 alone "
+        f"wrote ({[os.path.basename(w) for w in written]}); each rank "
+        f"launched {json.dumps(det_step)} a step. After {DP_STEPS} steps, "
+        f"largest error over the JAX tolerance (rtol {DP_TOL['rtol']}, "
+        f"atol {DP_TOL['atol']}) by group: {len(logs)} ranks against 1 "
         f"{json.dumps(synced)} {synced_leaves}; the yardstick, 1 rank "
         f"against itself with cuDNN off, {json.dumps(yardstick)} "
         f"{yard_leaves}")
@@ -2387,9 +2438,9 @@ def phase_dp(card, work):
         bad.append(f"adam {synced['adam']:.3g} against the yardstick's "
                    f"{yardstick['adam']:.3g}")
     if bad:
-        raise AssertionError(f"data parallel: the 2-rank checkpoint is off "
-                             f"the 1-rank one: {bad}")
-    return [rows[-1][2] for rows in probes], one_probe[-1][2]
+        raise AssertionError(f"{what}: the {len(logs)}-rank checkpoint is "
+                             f"off the 1-rank one: {bad}")
+    return probes, one_probe, sums
 
 
 def phase_check_dataset(work):
@@ -2483,15 +2534,29 @@ def norm_drifts(want, got):
             for k, v in want.items()}
 
 
-def spatial_rank(out_dir):
-    """One rank of phases 15-16: serve and train on a (1, world size)
-    mesh with TF32 off; writes ``spatial{world}_rank{rank}.json`` (times,
-    launches, peak memory, losses) and, on rank 0, the first request's
-    outputs of each shape and the checkpoint after each training step
-    (with cuDNN off too, where the world is one rank) into
-    ``out_dir``."""
+# What one launch of ``spatial_rank`` runs, unless its SPEC (JSON) says
+# otherwise: phases 15-16 on a (1, world) mesh. ``n_data`` data indices;
+# ``serve``: the request shapes; ``dtype``: the config's compute dtype
+# (None: the preset's, f32); ``train``: SP_STEPS steps (and, on one rank,
+# the cuDNN-off yardstick); ``det_twice``: the same steps twice more
+# under ``--reproductablity``'s switches and variants; ``tag``: added to
+# the files' stem.
+SP_SPEC = {"n_data": 1, "serve": SP_SERVE, "dtype": None, "train": True,
+           "det_twice": False, "tag": ""}
+
+
+def spatial_rank(out_dir, spec=None):
+    """One rank of phases 15-16 (and of ``--nccl``'s spatial checks): serve
+    and train on a (n_data, world / n_data) mesh with TF32 off, as the
+    JSON ``spec`` over ``SP_SPEC`` says; writes
+    ``spatial{world}{tag}_rank{rank}.json`` (times, launches, peak memory,
+    losses) and, on rank 0, the first request's outputs of each shape and
+    the checkpoint after each training step (with cuDNN off too, where
+    the world is one rank; ``_det1_``/``_det2_`` for the reproducible
+    runs) into ``out_dir``."""
     import os
     from planerecnet_tpu_torch import trainer
+    from planerecnet_tpu_torch import train as train_cli
     from planerecnet_tpu_torch.config import PlaneRecNet_50_config
     from planerecnet_tpu_torch.ops.image import fast_base_transform
     from planerecnet_tpu_torch.parallel.mesh import local_rows, make_mesh
@@ -2499,20 +2564,24 @@ def spatial_rank(out_dir):
                                                      jit_forward)
     from planerecnet_tpu_torch.runner import PlaneRecNetRunner
     from planerecnet_tpu_torch.utils.checkpoint import save_train_state
+    spec = dict(SP_SPEC, **json.loads(spec or "{}"))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     world = initialize_distributed("cuda")
     try:
-        mesh = make_mesh(world.device, n_data=1, n_spatial=world.size)
-        stem = os.path.join(out_dir, f"spatial{world.size}")
+        mesh = make_mesh(world.device, n_data=spec["n_data"],
+                         n_spatial=world.size // spec["n_data"])
+        stem = os.path.join(out_dir, f"spatial{world.size}{spec['tag']}")
         first = world.rank == 0
         cfg = PlaneRecNet_50_config
+        if spec["dtype"]:
+            cfg = cfg.copy(dict(compute_dtype=spec["dtype"]))
         out = {"serve": {}, "train": {}}
 
         runner = PlaneRecNetRunner(cfg, seed=0, device=world.device)
         perturb_(runner.model, seed=1)
         forward = jit_forward(cfg, mesh, spatial=True)
-        for b, h, w in SP_SERVE:
+        for b, h, w in spec["serve"]:
             reqs = [fast_base_transform(torch.from_numpy(frames(
                 b, h, w, seed=20 + r)).to(world.device))
                 for r in range(SP_REQUESTS + 1)]
@@ -2532,33 +2601,40 @@ def spatial_rank(out_dir):
             out["serve"][f"{b}x{h}x{w}"] = dict(
                 ms=times, peak_gib=torch.cuda.max_memory_allocated() / 2**30,
                 launches={k: n - before[k] for k, n in read_counts().items()})
-        del runner, reqs, preds
+            del reqs, preds
+        del runner
         torch.cuda.empty_cache()
 
         batch = local_rows(mesh, synthetic_batch(
             SP_BATCH, TRAIN_SIZE, cfg.max_instances, seed=3))
-        runs = [("", True)] + ([("_cudnn_off", False)] if world.size == 1
-                               else [])
-        for suffix, cudnn in runs:
+        runs = []
+        if spec["train"]:
+            runs += [("", True, False)] + (
+                [("_cudnn_off", False, False)] if world.size == 1 else [])
+        if spec["det_twice"]:
+            runs += [("_det1", True, True), ("_det2", True, True)]
+        for suffix, cudnn, det in runs:
             torch.backends.cudnn.enabled = cudnn
-            state = trainer.create_train_state(cfg, seed=0, mesh=mesh)
-            perturb_(state.model, seed=1)
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            steps = []
-            for i in range(SP_STEPS):
-                before = read_counts()
-                t0 = time.perf_counter()
-                losses = trainer.train_step(state, batch)
+            with train_cli.reproducible_mode(det):
+                state = trainer.create_train_state(cfg, seed=0, mesh=mesh,
+                                                   deterministic=det)
+                perturb_(state.model, seed=1)
                 torch.cuda.synchronize()
-                steps.append(dict(
-                    ms=(time.perf_counter() - t0) * 1e3,
-                    losses={k: float(v) for k, v in losses.items()},
-                    launches={k: n - before[k]
-                              for k, n in read_counts().items()}))
-                if first:
-                    save_train_state(f"{stem}_train{suffix}_step{i + 1}",
-                                     state)
+                torch.cuda.reset_peak_memory_stats()
+                steps = []
+                for i in range(SP_STEPS):
+                    before = read_counts()
+                    t0 = time.perf_counter()
+                    losses = trainer.train_step(state, batch)
+                    torch.cuda.synchronize()
+                    steps.append(dict(
+                        ms=(time.perf_counter() - t0) * 1e3,
+                        losses={k: float(v) for k, v in losses.items()},
+                        launches={k: n - before[k]
+                                  for k, n in read_counts().items()}))
+                    if first:
+                        save_train_state(f"{stem}_train{suffix}_step{i + 1}",
+                                         state)
             out["train" + suffix] = dict(
                 steps=steps,
                 peak_gib=torch.cuda.max_memory_allocated() / 2**30)
@@ -2571,19 +2647,25 @@ def spatial_rank(out_dir):
     return 0
 
 
-def spatial_launch(work, nproc, backend):
-    """Phases 15-16's ranks of one world: (each rank's results, the
-    launch's seconds)."""
+def spatial_launch(work, nproc, backend, spec=None, cards=None):
+    """Phases 15-16's ranks of one world (``spec``: ``spatial_rank``'s;
+    ``cards``: the visible cards, all by default): (each rank's results,
+    the launch's seconds)."""
     import os
     from planerecnet_tpu_torch.tools.run_multihost import launch
+    tag = json.loads(spec or "{}").get("tag", "")
     t0 = time.perf_counter()
-    launch(nproc, ["--spatial_rank", work], platform="cuda", backend=backend,
-           log_dir=os.path.join(work, f"spatial{nproc}_logs"),
-           timeout=SP_TIMEOUT, module="chip_smoke")
+    launch(nproc, ["--spatial_rank", work] + ([spec] if spec else []),
+           platform="cuda", backend=backend,
+           log_dir=os.path.join(work, f"spatial{nproc}{tag}_logs"),
+           timeout=SP_TIMEOUT, module="chip_smoke",
+           extra_env=None if cards is None else {
+               "CUDA_VISIBLE_DEVICES": cards})
     seconds = time.perf_counter() - t0
     results = []
     for r in range(nproc):
-        with open(os.path.join(work, f"spatial{nproc}_rank{r}.json")) as f:
+        with open(os.path.join(work, f"spatial{nproc}{tag}_rank{r}.json")) \
+                as f:
             results.append(json.load(f))
     return results, seconds
 
@@ -2592,9 +2674,27 @@ def phase_spatial(card, work, backend="gloo"):
     """Phases 15-16: the spatial axis on the one card, SP_RANKS ranks
     against one unsplit rank of the same program (``spatial_rank``);
     with ``backend="nccl"`` one card a rank, on a host with SP_RANKS.
-    Serving: every output of each request shape within SP_TOL of its scale
-    of the unsplit rank's, 13 im2col launches a request on every rank.
-    Training: the losses of step 1 within SP_LOSS_TOL; after each step the
+    Checked by ``spatial_verify``; returns each rank's launches and the
+    unsplit rank's, by path."""
+    torch.cuda.empty_cache()
+    one, one_s = spatial_launch(work, 1, backend)
+    split, split_s = spatial_launch(work, SP_RANKS, backend)
+    where = (f"{SP_RANKS} ranks sharing one card over gloo: no latency or "
+             f"scaling figure" if backend == "gloo" else
+             f"{SP_RANKS} ranks, one card each over {backend}")
+    return spatial_verify(card, work, one[0], split, one_s, split_s, where)
+
+
+def spatial_verify(card, work, one, split, one_s, split_s, where, tag="",
+                   one_tag="", shapes=SP_SERVE, tol=SP_TOL, bf16=False,
+                   train=True):
+    """The split ranks' results ``split`` (files ``spatial{n}{tag}_*``)
+    against the unsplit rank's ``one`` (``spatial1{one_tag}_*``).
+    Serving: every output of each request shape in ``shapes`` within
+    ``tol`` of its scale of the unsplit rank's, 13 im2col launches a
+    request on every rank (all of the bf16 instance, with ``bf16``).
+    Training (``train``): the losses of step 1 within SP_LOSS_TOL; after
+    each step the
     parameters within phase 13's ``DP_TOL``, after step 1 the BatchNorm
     statistics too, and every other group (the Adam moments; after step 2
     the statistics, which the one rank's own yardstick puts past
@@ -2604,24 +2704,21 @@ def phase_spatial(card, work, backend="gloo"):
     yardstick's drift; each rank launching 26/13/4/4 a step. Returns each
     rank's launches and the unsplit rank's, by path."""
     import os
-    torch.cuda.empty_cache()
-    one, one_s = spatial_launch(work, 1, backend)
-    split, split_s = spatial_launch(work, SP_RANKS, backend)
-    where = (f"{SP_RANKS} ranks sharing one card over gloo: no latency or "
-             f"scaling figure" if backend == "gloo" else
-             f"{SP_RANKS} ranks, one card each over {backend}")
-    one = one[0]
+    n = len(split)
+    dtype = "bf16" if bf16 else "f32"
     per_request = {k: 0 for k in kernel_counters()}
     per_request["dcn_im2col"] = DCN_LAYERS_PRN50
+    if bf16:
+        per_request["dcn_im2col_bf16"] = DCN_LAYERS_PRN50
     per_step = launches_per_step(deterministic=False)
 
-    def stem(n):
-        return os.path.join(work, f"spatial{n}")
+    def stem(k):
+        return os.path.join(work, f"spatial{k}{tag if k == n else one_tag}")
 
-    for b, h, w in SP_SERVE:
+    for b, h, w in shapes:
         shape = f"{b}x{h}x{w}"
         want = torch.load(f"{stem(1)}_serve_{shape}.pt")
-        got = torch.load(f"{stem(SP_RANKS)}_serve_{shape}.pt")
+        got = torch.load(f"{stem(n)}_serve_{shape}.pt")
         errs = {}
         for key, value in want.items():
             for i, (a, g) in enumerate(zip(
@@ -2632,108 +2729,114 @@ def phase_spatial(card, work, backend="gloo"):
                                                                      1e-30)
         worst = max(errs.values())
         for r, res in enumerate(split + [one]):
-            n = res["serve"][shape]["launches"]
-            if n != {k: v * SP_REQUESTS for k, v in per_request.items()}:
+            counts = res["serve"][shape]["launches"]
+            if counts != {k: v * SP_REQUESTS for k, v in per_request.items()}:
                 raise AssertionError(f"spatial serve {shape}, rank {r}: "
-                                     f"launches {n}")
+                                     f"launches {counts}")
         ms = [[round(t, 3) for t in res["serve"][shape]["ms"]]
               for res in split + [one]]
         peaks = [round(res["serve"][shape]["peak_gib"], 3) for res in split]
-        log(f"[spatial-serve] PRN-50 {shape} f32, TF32 off, {SP_RANKS} "
+        log(f"[spatial-serve] PRN-50 {shape} {dtype}, TF32 off, {n} "
             f"ranks splitting the height ({where}): ms/request by rank "
             f"{ms[:-1]} (medians {[float(np.median(m)) for m in ms[:-1]]}) "
             f"against one unsplit rank's {ms[-1]} (median "
             f"{float(np.median(ms[-1])):.3f}); peak "
             f"memory by rank {peaks} "
             f"GiB against {one['serve'][shape]['peak_gib']:.3f} GiB; "
-            f"largest error over scale {worst:.3g} (tol {SP_TOL}) "
+            f"largest error over scale {worst:.3g} (tol {tol}) "
             f"{json.dumps({k: float(f'{v:.3g}') for k, v in errs.items()})}; "
-            f"{DCN_LAYERS_PRN50} im2col launches a request on every rank; "
+            f"{DCN_LAYERS_PRN50} {dtype} im2col launches a request on "
+            f"every rank; "
             f"{card}")
-        if not worst <= SP_TOL:
+        if not worst <= tol:
             raise AssertionError(f"spatial serve {shape}: outputs off the "
                                  f"unsplit rank's by {worst:.3g} of scale")
 
-    for r, res in enumerate(split + [one]):
-        for i, step in enumerate(res["train"]["steps"]):
-            if step["launches"] != per_step:
-                raise AssertionError(f"spatial train, rank {r} step {i}: "
-                                     f"launches {step['launches']}")
-    want = one["train"]["steps"][0]["losses"]
-    for r, res in enumerate(split):
-        got = res["train"]["steps"][0]["losses"]
-        bad = {k: (got[k], v) for k, v in want.items()
-               if not abs(got[k] - v) <= SP_LOSS_TOL["atol"]
-               + SP_LOSS_TOL["rtol"] * abs(v)}
-        if bad or not all(np.isfinite(list(got.values()))):
-            raise AssertionError(f"spatial train, rank {r}: step-1 losses "
-                                 f"off the unsplit rank's: {bad}")
-    bad = []
-    for step in range(1, SP_STEPS + 1):
-        one_ckpt = f"{stem(1)}_train_step{step}.npz"
-        shares, leaves = dp_shares(one_ckpt,
-                                   f"{stem(SP_RANKS)}_train_step{step}.npz")
-        yardstick, yard_leaves = dp_shares(
-            one_ckpt, f"{stem(1)}_train_cudnn_off_step{step}.npz")
-        log(f"[spatial-train] after step {step}, largest error over the "
-            f"JAX tolerance (rtol {DP_TOL['rtol']}, atol {DP_TOL['atol']}) "
-            f"by group: {SP_RANKS} ranks against 1 {json.dumps(shares)} "
-            f"{leaves}; the yardstick, 1 rank against itself with cuDNN "
-            f"off, {json.dumps(yardstick)} {yard_leaves}")
-        # The parameters within the tolerance; after step 1 (the
-        # gradients taken at equal parameters) the statistics too; else
-        # within the yardstick rule of phase 13's Adam moments.
-        strict = ("params", "batch_stats") if step == 1 else ("params",)
-        for group, share in shares.items():
-            bar = 1.0 if group in strict else DP_YARDSTICK_FACTOR * max(
-                yardstick[group], 1.0)
-            if share > bar:
-                bad.append(f"step {step} {group} {share:.3g} > {bar:.3g}")
-        norms = moment_norms(one_ckpt)
-        drift = norm_drifts(norms, moment_norms(
-            f"{stem(SP_RANKS)}_train_step{step}.npz"))
-        yard = norm_drifts(norms, moment_norms(
-            f"{stem(1)}_train_cudnn_off_step{step}.npz"))
-        bars = {k: max(SP_NORM_TOL, DP_YARDSTICK_FACTOR * yard[k])
-                for k in drift}
-        off = sorted((drift[k] / bars[k], k) for k in drift
-                     if drift[k] > bars[k])
-        seen = sum(b < SP_NORM_BLIND for b in bars.values())
-        worst = sorted(((round(drift[k], 4), round(yard[k], 4), k)
-                        for k in drift), reverse=True)[:6]
-        log(f"[spatial-train] after step {step}, the Adam moments' norm "
-            f"by module, {SP_RANKS} ranks against 1: largest drift "
-            f"{max(drift.values()):.3g}, the yardstick's "
-            f"{max(yard.values()):.3g}; median "
-            f"{np.median(list(drift.values())):.3g} against "
-            f"{np.median(list(yard.values())):.3g}; furthest off (drift, "
-            f"the yardstick's, moment/module) {worst}; {len(off)} of "
-            f"{len(drift)} past their bar (max({SP_NORM_TOL}, "
-            f"{DP_YARDSTICK_FACTOR}x the yardstick's)); {seen} have a bar "
-            f"under {SP_NORM_BLIND} (they would see a gradient off by 2x)")
-        if off:
-            bad.append(f"step {step} moment norms off on {len(off)} "
-                       f"modules, worst {off[-1][1]} at {off[-1][0]:.3g}x "
-                       f"its bar")
-        if seen < SP_NORM_SEEN * len(bars):
-            bad.append(f"step {step}: the yardstick leaves only {seen} of "
-                       f"{len(bars)} modules a bar under {SP_NORM_BLIND}")
-    step_ms = [[round(s["ms"], 1) for s in res["train"]["steps"]]
-               for res in split]
-    log(f"[spatial-train] PRN-50 {SP_BATCH}x{TRAIN_SIZE}x{TRAIN_SIZE} f32, "
-        f"TF32 off, BatchNorm synced, {SP_RANKS} ranks splitting the height "
-        f"({where}): ms/step by rank "
-        f"{step_ms} against one unsplit rank's "
-        f"{[round(s['ms'], 1) for s in one['train']['steps']]}; peak memory "
-        f"by rank {[round(res['train']['peak_gib'], 3) for res in split]} GiB "
-        f"against {one['train']['peak_gib']:.3f} GiB; launch to exit: "
-        f"{SP_RANKS} ranks {split_s:.1f} s, 1 rank {one_s:.1f} s; step-1 "
-        f"losses "
-        f"{json.dumps(split[0]['train']['steps'][0]['losses'])} against "
-        f"{json.dumps(want)}; {card}")
-    if bad:
-        raise AssertionError(f"spatial train: the split checkpoint is off "
-                             f"the unsplit one: {bad}")
+    if train:
+        for r, res in enumerate(split + [one]):
+            for i, step in enumerate(res["train"]["steps"]):
+                if step["launches"] != per_step:
+                    raise AssertionError(f"spatial train, rank {r} step {i}: "
+                                         f"launches {step['launches']}")
+        want = one["train"]["steps"][0]["losses"]
+        for r, res in enumerate(split):
+            got = res["train"]["steps"][0]["losses"]
+            bad = {k: (got[k], v) for k, v in want.items()
+                   if not abs(got[k] - v) <= SP_LOSS_TOL["atol"]
+                   + SP_LOSS_TOL["rtol"] * abs(v)}
+            if bad or not all(np.isfinite(list(got.values()))):
+                raise AssertionError(f"spatial train, rank {r}: step-1 losses "
+                                     f"off the unsplit rank's: {bad}")
+        bad = []
+        for step in range(1, SP_STEPS + 1):
+            one_ckpt = f"{stem(1)}_train_step{step}.npz"
+            shares, leaves = dp_shares(one_ckpt,
+                                       f"{stem(n)}_train_step{step}.npz")
+            yardstick, yard_leaves = dp_shares(
+                one_ckpt, f"{stem(1)}_train_cudnn_off_step{step}.npz")
+            log(f"[spatial-train] after step {step}, largest error over the "
+                f"JAX tolerance (rtol {DP_TOL['rtol']}, atol "
+                f"{DP_TOL['atol']}) "
+                f"by group: {n} ranks against 1 {json.dumps(shares)} "
+                f"{leaves}; the yardstick, 1 rank against itself with cuDNN "
+                f"off, {json.dumps(yardstick)} {yard_leaves}")
+            # The parameters within the tolerance; after step 1 (the
+            # gradients taken at equal parameters) the statistics too; else
+            # within the yardstick rule of phase 13's Adam moments.
+            strict = ("params", "batch_stats") if step == 1 else ("params",)
+            for group, share in shares.items():
+                bar = 1.0 if group in strict else DP_YARDSTICK_FACTOR * max(
+                    yardstick[group], 1.0)
+                if share > bar:
+                    bad.append(f"step {step} {group} {share:.3g} > {bar:.3g}")
+            norms = moment_norms(one_ckpt)
+            drift = norm_drifts(norms, moment_norms(
+                f"{stem(n)}_train_step{step}.npz"))
+            yard = norm_drifts(norms, moment_norms(
+                f"{stem(1)}_train_cudnn_off_step{step}.npz"))
+            bars = {k: max(SP_NORM_TOL, DP_YARDSTICK_FACTOR * yard[k])
+                    for k in drift}
+            off = sorted((drift[k] / bars[k], k) for k in drift
+                         if drift[k] > bars[k])
+            seen = sum(b < SP_NORM_BLIND for b in bars.values())
+            worst = sorted(((round(drift[k], 4), round(yard[k], 4), k)
+                            for k in drift), reverse=True)[:6]
+            log(f"[spatial-train] after step {step}, the Adam moments' norm "
+                f"by module, {n} ranks against 1: largest drift "
+                f"{max(drift.values()):.3g}, the yardstick's "
+                f"{max(yard.values()):.3g}; median "
+                f"{np.median(list(drift.values())):.3g} against "
+                f"{np.median(list(yard.values())):.3g}; furthest off (drift, "
+                f"the yardstick's, moment/module) {worst}; {len(off)} of "
+                f"{len(drift)} past their bar (max({SP_NORM_TOL}, "
+                f"{DP_YARDSTICK_FACTOR}x the yardstick's)); {seen} have a bar "
+                f"under {SP_NORM_BLIND} (they would see a gradient off by 2x)")
+            if off:
+                bad.append(f"step {step} moment norms off on {len(off)} "
+                           f"modules, worst {off[-1][1]} at {off[-1][0]:.3g}x "
+                           f"its bar")
+            if seen < SP_NORM_SEEN * len(bars):
+                bad.append(f"step {step}: the yardstick leaves only {seen} of "
+                           f"{len(bars)} modules a bar under {SP_NORM_BLIND}")
+        step_ms = [[round(s["ms"], 1) for s in res["train"]["steps"]]
+                   for res in split]
+        log(f"[spatial-train] PRN-50 {SP_BATCH}x{TRAIN_SIZE}x{TRAIN_SIZE} "
+            f"f32, "
+            f"TF32 off, BatchNorm synced, {n} ranks splitting the height "
+            f"({where}): ms/step by rank "
+            f"{step_ms} against one unsplit rank's "
+            f"{[round(s['ms'], 1) for s in one['train']['steps']]}; peak "
+            f"memory "
+            f"by rank "
+            f"{[round(res['train']['peak_gib'], 3) for res in split]} GiB "
+            f"against {one['train']['peak_gib']:.3f} GiB; launch to exit: "
+            f"{n} ranks {split_s:.1f} s, 1 rank {one_s:.1f} s; step-1 "
+            f"losses "
+            f"{json.dumps(split[0]['train']['steps'][0]['losses'])} against "
+            f"{json.dumps(want)}; {card}")
+        if bad:
+            raise AssertionError(f"spatial train: the split checkpoint is off "
+                                 f"the unsplit one: {bad}")
 
     def total(res, path):
         runs = [res[path]] if path == "train" else list(res[path].values())
@@ -2741,10 +2844,10 @@ def phase_spatial(card, work, backend="gloo"):
                   for s in (run["steps"] if path == "train" else [run])]
         return {k: sum(c[k] for c in counts) for k in counts[0]}
 
+    paths = ("serve", "train") if train else ("serve",)
     return ({f"spatial_{p}_rank{r}": total(res, p)
-             for p in ("serve", "train") for r, res in enumerate(split)}
-            | {f"spatial_{p}_one_process": total(one, p)
-               for p in ("serve", "train")})
+             for p in paths for r, res in enumerate(split)}
+            | {f"spatial_{p}_one_process": total(one, p) for p in paths})
 
 
 # Phase 18. The whole request that ``profile_inference`` times (CUDA
@@ -2950,6 +3053,507 @@ def tools_alone(card):
         shutil.rmtree(work, ignore_errors=True)
 
 
+# ``--nccl``: the data and spatial axes over NCCL on one host, one rank a
+# card, on NCCL_CARDS cards (fewer: the mode fails). Phase 13's check
+# through the train CLI as users start it (``--n_devices N`` starts the
+# ranks) on 2 and on 4 cards, against one rank on the same global
+# batches; the 4-card run twice, bit for bit; phases 15-16 on a (2, 2)
+# mesh, and its steps twice under ``--reproductablity``'s switches and
+# variants; phase 15's serving in bf16 on a (1, 2) mesh; then PRN-50's
+# default step (phase 7's settings) on 1, 2 and 4 cards, the 4-card step
+# through the CLI and its loaders, and a trace of rank 0 on 4 cards.
+# Jobs that need fewer cards than the host has run side by side, each on
+# its own (``CUDA_VISIBLE_DEVICES``); the timed runs run alone.
+NCCL_CARDS = 4
+NCCL_TIMEOUT = 420      # seconds a launch or CLI run may take
+NCCL_WARMUP, NCCL_TIMED, NCCL_TRACED = 2, 10, 3
+# The 4-card CLI run: its tree of 640x640 frames (3 global batches of 32)
+# and its steps; the steps within an epoch after the first are timed.
+NCCL_CLI_FRAMES, NCCL_CLI_ITERS = 96, 12
+# Phase 15's request that splits over 2 data indices, and the (2, 2)
+# mesh's runs (``spatial_rank``'s SPEC).
+NCCL_2D = {"n_data": 2, "serve": [[BATCH, HEIGHT, WIDTH]],
+           "det_twice": True, "tag": "_2x2"}
+NCCL_BF16 = {"dtype": "bfloat16", "train": False, "tag": "_bf16"}
+
+
+def run_logged(cmd, log_path, timeout, env=None, cwd=None):
+    """Run ``cmd`` in a session of its own, its output into ``log_path``;
+    returns its exit code. At ``timeout`` seconds, or if this process is
+    interrupted, its whole process group (the ranks it started with it)
+    is killed."""
+    import os
+    import signal
+    with open(log_path, "w") as f:
+        p = subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT,
+                             env=env, cwd=cwd, start_new_session=True)
+        try:
+            return p.wait(timeout=timeout)
+        finally:
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.wait()
+
+
+def tail(path, lines=20):
+    with open(path) as f:
+        return "".join(f.readlines()[-lines:])
+
+
+def side_by_side(*jobs):
+    """Run the callables ``jobs`` at once (each on cards of its own);
+    their results in order, or the first one's error once all ended."""
+    import concurrent.futures
+    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
+        futures = [pool.submit(job) for job in jobs]
+    return [f.result() for f in futures]
+
+
+def repo_env(**extra):
+    """This process's environment with the repository first on
+    PYTHONPATH (``PYTHONPATH`` in ``extra`` goes in front of it)."""
+    import os
+    paths = [extra.pop("PYTHONPATH", None),
+             os.path.dirname(os.path.abspath(__file__)),
+             os.environ.get("PYTHONPATH")]
+    return dict(os.environ, **extra,
+                PYTHONPATH=os.pathsep.join(p for p in paths if p))
+
+
+def nccl_cli(work, name, n, batch, site, cards):
+    """Phase 13's run through the train CLI as users start it on ``n``
+    cards (``--n_devices n``; ``cards`` visible): (the rank logs, rank 0's
+    checkpoints)."""
+    import os
+    logs = os.path.join(work, name + "_logs")
+    os.makedirs(logs, exist_ok=True)
+    rank0 = os.path.join(logs, "rank0.log")
+    code = run_logged(
+        [sys.executable, "-m", "planerecnet_tpu_torch.train",
+         *dp_args(name, batch, DP_ITERS), "--n_devices", str(n),
+         "--log_folder", name + "_logs/"], rank0, NCCL_TIMEOUT,
+        env=repo_env(PYTHONPATH=site, PRN_DEBUG_BATCH_SUM="1",
+                     CUDA_VISIBLE_DEVICES=cards), cwd=work)
+    if code:
+        raise AssertionError(f"{name}: the train CLI exited {code}:\n"
+                             f"{tail(rank0)}")
+    folder = os.path.join(work, name)
+    return ([rank0] + [os.path.join(logs, "ranks", f"worker{r}.log")
+                       for r in range(1, n)],
+            [os.path.join(folder, f) for f in sorted(os.listdir(folder))])
+
+
+def nccl_dp(card, work):
+    """Item 1-2 of ``--nccl``: phase 13 over NCCL through the train CLI on
+    2 and 4 cards, each against one rank at the same global batch (6
+    images a rank) with ``dp_verify``'s rules; the 4-card run twice, its
+    checkpoints equal in every bit of every array; its last checkpoint
+    loaded in one process. Returns the launches by rank and path."""
+    from planerecnet_tpu_torch import trainer
+    from planerecnet_tpu_torch.config import PlaneRecNet_50_config
+    from planerecnet_tpu_torch.utils.checkpoint import load_train_state
+    sites = dp_sites(work)
+    tf32, yard = sites["tf32_off"], sites["cudnn_off"]
+    one = {}
+
+    def one_rank(tag, batch, iters, site, card_index):
+        return dp_run(work, f"nccl_{tag}{batch}", 1, iters, site,
+                      batch=batch, backend="nccl", cards=card_index,
+                      timeout=NCCL_TIMEOUT)
+
+    t0 = time.perf_counter()
+    (logs2, ckpt2), one[12], one[24] = side_by_side(
+        lambda: nccl_cli(work, "nccl2", 2, 12, tf32, "0,1"),
+        lambda: one_rank("one", 12, DP_ITERS, tf32, "2"),
+        lambda: one_rank("one", 24, DP_ITERS, tf32, "3"))
+    t1 = time.perf_counter()
+    (_, yard12), (_, yard24) = side_by_side(
+        lambda: one_rank("yard", 12, DP_STEPS, yard, "0"),
+        lambda: one_rank("yard", 24, DP_STEPS, yard, "1"))
+    t2 = time.perf_counter()
+    logs4, ckpt4 = nccl_cli(work, "nccl4", NCCL_CARDS, 24, tf32, "0,1,2,3")
+    t3 = time.perf_counter()
+    _, ckpt4b = nccl_cli(work, "nccl4b", NCCL_CARDS, 24, tf32, "0,1,2,3")
+    t4 = time.perf_counter()
+    log(f"[nccl-dp] launch to exit: 2-card CLI with the one-rank runs at "
+        f"12 and 24 beside it {t1 - t0:.1f} s; the yardsticks "
+        f"{t2 - t1:.1f} s; 4-card CLI {t3 - t2:.1f} s, again "
+        f"{t4 - t3:.1f} s; {card}")
+    probes2, _, _ = dp_verify("NCCL through the CLI, 2 cards", logs2,
+                              one[12][0][0], ckpt2, one[12][1], yard12)
+    probes4, _, _ = dp_verify("NCCL through the CLI, 4 cards", logs4,
+                              one[24][0][0], ckpt4, one[24][1], yard24)
+    if len(ckpt4b) != len(ckpt4):
+        raise AssertionError(f"4 cards twice: {ckpt4} and {ckpt4b}")
+    n_arrays = 0
+    for a, b in zip(ckpt4, ckpt4b):
+        differ, n_arrays = differing_arrays(a, b)
+        if differ:
+            raise AssertionError(f"4 cards twice with --reproductablity: "
+                                 f"{len(differ)} of {n_arrays} arrays of "
+                                 f"{a} differ, e.g. {differ[:5]}")
+    state = trainer.create_train_state(PlaneRecNet_50_config, seed=0,
+                                       device="cuda")
+    load_train_state(ckpt4[-1], state)
+    if state.step != DP_ITERS:
+        raise AssertionError(f"the 4-card checkpoint loads at step "
+                             f"{state.step}")
+    del state
+    torch.cuda.empty_cache()
+    log(f"[nccl-dp] 4 cards twice with --reproductablity: all "
+        f"{len(ckpt4)} checkpoints agree in every bit of all {n_arrays} "
+        f"arrays; the last loads in one process at step {DP_ITERS}")
+    return ({f"nccl_dp2_rank{r}": rows[-1][2]
+             for r, rows in enumerate(probes2)}
+            | {f"nccl_dp4_rank{r}": rows[-1][2]
+               for r, rows in enumerate(probes4)})
+
+
+def nccl_spatial(card, work):
+    """Items 3-4 of ``--nccl``: phases 15-16 on a (2, 2) mesh of 4 cards
+    (phase 15's 8x480x640 requests, 4 images a data index, 240 rows a
+    rank; phase 16's steps at 6x640x640) against one unsplit rank, and
+    the same steps twice under ``--reproductablity``'s switches and
+    variants, equal in every bit of every array; phase 15's serving in
+    bf16 on a (1, 2) mesh against one unsplit bf16 rank, within phase
+    11's RAW_BF16_TOL of each output's scale. Returns the launches by
+    rank and path."""
+    import os
+    bf16 = json.dumps(NCCL_BF16)
+    (split_bf16, split_bf16_s), (one, one_s), (one_bf16, one_bf16_s) = \
+        side_by_side(
+            lambda: spatial_launch(work, 2, "nccl", bf16, cards="0,1"),
+            lambda: spatial_launch(work, 1, "nccl", cards="2"),
+            lambda: spatial_launch(work, 1, "nccl", bf16, cards="3"))
+    split, split_s = spatial_launch(work, NCCL_CARDS, "nccl",
+                                    json.dumps(NCCL_2D))
+    launches = spatial_verify(
+        card, work, one[0], split, one_s, split_s,
+        "4 ranks on a (2, 2) data x spatial mesh, one card each over nccl",
+        tag=NCCL_2D["tag"], shapes=[tuple(s) for s in NCCL_2D["serve"]])
+    det_step = launches_per_step(deterministic=True)
+    for r, res in enumerate(split):
+        for run in ("train_det1", "train_det2"):
+            for i, step in enumerate(res[run]["steps"]):
+                if step["launches"] != det_step:
+                    raise AssertionError(f"(2, 2) {run}, rank {r} step {i}:"
+                                         f" launches {step['launches']}")
+    stem = os.path.join(work, f"spatial{NCCL_CARDS}{NCCL_2D['tag']}")
+    n_arrays = 0
+    for step in range(1, SP_STEPS + 1):
+        differ, n_arrays = differing_arrays(
+            f"{stem}_train_det1_step{step}.npz",
+            f"{stem}_train_det2_step{step}.npz")
+        if differ:
+            raise AssertionError(f"(2, 2) with --reproductablity's switches "
+                                 f"twice: {len(differ)} of {n_arrays} arrays "
+                                 f"differ after step {step}, e.g. "
+                                 f"{differ[:5]}")
+    log(f"[nccl-spatial] (2, 2) mesh, {SP_STEPS} steps twice under "
+        f"--reproductablity's switches and variants: every array of the "
+        f"checkpoints ({n_arrays}) equal in every bit after each step; "
+        f"each rank launched {json.dumps(det_step)} a step")
+    launches |= {k.replace("spatial_", "spatial_bf16_"): v for k, v in
+                 spatial_verify(
+                     card, work, one_bf16[0], split_bf16, one_bf16_s,
+                     split_bf16_s, "2 ranks, one card each over nccl",
+                     tag=NCCL_BF16["tag"], one_tag=NCCL_BF16["tag"],
+                     tol=RAW_BF16_TOL, bf16=True, train=False).items()}
+    for r, res in enumerate(split):
+        launches[f"spatial_det_rank{r}"] = {
+            k: sum(s["launches"][k] for run in ("train_det1", "train_det2")
+                   for s in res[run]["steps"]) for k in det_step}
+    return {"nccl_" + k: v for k, v in launches.items()}
+
+
+def label_collectives():
+    """Wrap each of the port's collectives in a ``torch.profiler`` range
+    named by what issues it: ``prn:syncbn`` (``SyncBatchNorm2d``'s sums),
+    ``prn:losses`` (the losses' global counts), ``prn:gradients`` (DDP's
+    buckets). Measurement only; before the train state is made."""
+    import functools
+    from torch.profiler import record_function
+    from planerecnet_tpu_torch.parallel import mesh as pmesh
+    from planerecnet_tpu_torch.parallel import spmd
+
+    def labelled(fn, name):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            with record_function(name):
+                return fn(*args, **kwargs)
+        return call
+
+    spmd._all_sum = labelled(spmd._all_sum, "prn:syncbn")
+    pmesh.Mesh.all_sum = labelled(pmesh.Mesh.all_sum, "prn:losses")
+    pmesh._sum_hook = labelled(pmesh._sum_hook, "prn:gradients")
+
+
+def _merged(intervals):
+    out = []
+    for a, b in sorted(intervals):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def _covered(merged, starts, a, b):
+    """The length of [a, b] that the sorted disjoint ``merged`` covers."""
+    import bisect
+    total, i = 0.0, max(bisect.bisect_right(starts, a) - 1, 0)
+    while i < len(merged) and merged[i][0] < b:
+        total += max(0.0, min(b, merged[i][1]) - max(a, merged[i][0]))
+        i += 1
+    return total
+
+
+def nccl_split(events, runs):
+    """A rank's NCCL kernels in a trace, by what issued them. Each
+    ``prn:*`` range of ``label_collectives`` issues one collective, and
+    one communicator runs its kernels on one stream in issue order, so
+    the k-th range by start issued the k-th NCCL kernel (where the counts
+    differ, every kernel is counted under ``all`` alone). Per run: by
+    class, ``calls``, ``ms`` (the kernels' device time, their wait for
+    the other ranks included), ``exposed_ms`` (the part of it when no
+    other device work ran) and ``overlap_share`` (1 - exposed / ms); and
+    the share of the traced window in which no device work but NCCL's
+    ran (``compute_idle_share``)."""
+    complete = [e for e in events if e.get("ph") == "X" and "ts" in e]
+
+    def span(e):
+        return float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0.0))
+
+    device = [e for e in complete if e.get("cat") in
+              ("kernel", "gpu_memcpy", "gpu_memset")]
+    nccl = sorted((e for e in device if e.get("cat") == "kernel"
+                   and "nccl" in e.get("name", "").lower()),
+                  key=lambda e: span(e))
+    labels = sorted((e for e in complete if e.get("cat") == "user_annotation"
+                     and e.get("name", "").startswith("prn:")),
+                    key=lambda e: span(e))
+    skip = {id(e) for e in nccl}
+    compute = _merged(span(e) for e in device if id(e) not in skip)
+    starts = [a for a, _ in compute]
+    paired = len(labels) == len(nccl)
+    classes = {}
+    for i, e in enumerate(nccl):
+        a, b = span(e)
+        for cls in {"all", labels[i]["name"][4:] if paired else "all"}:
+            row = classes.setdefault(cls, [0, 0.0, 0.0])
+            row[0] += 1
+            row[1] += b - a
+            row[2] += (b - a) - _covered(compute, starts, a, b)
+    spans = [span(e) for e in complete]
+    window = max(b for _, b in spans) - min(a for a, _ in spans)
+    return {"nccl_kernels": len(nccl) / runs, "ranges": len(labels) / runs,
+            "paired": paired,
+            "names": sorted({e["name"][:60] for e in nccl})[:6],
+            "classes": {cls: {"calls": n / runs, "ms": us / 1e3 / runs,
+                              "exposed_ms": ex / 1e3 / runs,
+                              "overlap_share": 1 - ex / us if us else 0.0}
+                        for cls, (n, us, ex) in classes.items()},
+            "compute_idle_share": 1 - sum(b - a for a, b in compute)
+            / window if window else 0.0}
+
+
+def step_rank(out_dir):
+    """One rank of ``--nccl``'s timing: PRN-50's default step at phase 7's
+    settings (f32, cuDNN TF32 on, seeded perturbed weights, phase 7's
+    synthetic batch on rank 0, seeds 3 + rank), 8x640x640 a rank;
+    NCCL_WARMUP steps, then NCCL_TIMED timed (host clock, synchronised),
+    their peak memory and launches; on NCCL_CARDS ranks rank 0 traces
+    NCCL_TRACED more (``nccl_split``). One rank trains without a mesh, as
+    phase 7. Writes ``step{world}_rank{rank}.json`` into ``out_dir``."""
+    import os
+    from planerecnet_tpu_torch import trainer
+    from planerecnet_tpu_torch.config import PlaneRecNet_50_config
+    from planerecnet_tpu_torch.parallel.spmd import initialize_distributed
+    from planerecnet_tpu_torch.tools import parse_trace
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    label_collectives()
+    world = initialize_distributed("cuda")
+    try:
+        cfg = PlaneRecNet_50_config.copy(dict(lr_warmup_until=0))
+        state = trainer.create_train_state(
+            cfg, seed=0, device=world.device,
+            mesh=world if world.size > 1 else None)
+        perturb_(state.model, seed=1)
+        batch = synthetic_batch(BATCH, TRAIN_SIZE, cfg.max_instances,
+                                seed=3 + world.rank)
+        for _ in range(NCCL_WARMUP):
+            trainer.train_step(state, batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before, times = read_counts(), []
+        for _ in range(NCCL_TIMED):
+            t0 = time.perf_counter()
+            trainer.train_step(state, batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out = {"ms": times,
+               "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+               "launches": {k: n - before[k]
+                            for k, n in read_counts().items()}}
+        if world.size == NCCL_CARDS:
+            if world.rank == 0:
+                summary = parse_trace.record(
+                    lambda: trainer.train_step(state, batch), NCCL_TRACED,
+                    out_dir, f"step{world.size}", world.device)
+                out["trace"] = dict(
+                    nccl_split(parse_trace.load(summary["trace"]),
+                               NCCL_TRACED),
+                    **{k: summary[k] for k in ("wall_ms", "window_ms",
+                                               "busy_ms", "idle_share")})
+            else:
+                for _ in range(NCCL_TRACED):
+                    trainer.train_step(state, batch)
+                torch.cuda.synchronize()
+        with open(os.path.join(out_dir, f"step{world.size}_rank"
+                               f"{world.rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+def nccl_timing(card, work, tree):
+    """Item 5 of ``--nccl``: ``step_rank`` on 1, 2 and 4 cards, one run at
+    a time (rank 0's median ms, images/s over the ranks, t1 / tN, peak
+    memory a card, launches a step), then the train CLI with no
+    ``--n_devices`` on the host's 4 cards from the 640x640 ``tree``
+    (global batch 32, 8 a card, TF32 on, its loaders; ms a step from rank
+    0's probe, which reads each batch's checksum back once a step).
+    Returns the numbers and the launches by rank and path."""
+    import os
+    from planerecnet_tpu_torch.tools.run_multihost import launch
+    per_step = launches_per_step(deterministic=False)
+    steps, launches = {}, {}
+    for n in (1, 2, NCCL_CARDS):
+        t0 = time.perf_counter()
+        launch(n, ["--step_rank", work], platform="cuda",
+               log_dir=os.path.join(work, f"step{n}_logs"),
+               timeout=NCCL_TIMEOUT, module="chip_smoke",
+               extra_env={"CUDA_VISIBLE_DEVICES": ",".join(
+                   map(str, range(n)))})
+        seconds = time.perf_counter() - t0
+        ranks = []
+        for r in range(n):
+            with open(os.path.join(work, f"step{n}_rank{r}.json")) as f:
+                ranks.append(json.load(f))
+            got = ranks[-1]["launches"]
+            if got != {k: v * NCCL_TIMED for k, v in per_step.items()}:
+                raise AssertionError(f"{n} cards, rank {r}: launches {got} "
+                                     f"in {NCCL_TIMED} steps")
+            launches[f"nccl_step{n}_rank{r}"] = got
+        ms = float(np.median(ranks[0]["ms"]))
+        steps[n] = {"ms": ms, "img_s": n * BATCH / ms * 1e3,
+                    "rank_medians": [float(np.median(x["ms"]))
+                                     for x in ranks],
+                    "peak_gib": [x["peak_gib"] for x in ranks],
+                    "launch_s": seconds, "trace": ranks[0].get("trace")}
+        if not np.isfinite(ms):
+            raise AssertionError(f"{n} cards: step times {ranks[0]['ms']}")
+    for n, row in steps.items():
+        row["efficiency"] = steps[1]["ms"] / row["ms"]
+        log(f"[nccl-step] PRN-50 {BATCH}x{TRAIN_SIZE}x{TRAIN_SIZE} a card, "
+            f"f32, cuDNN TF32 on, {n} card(s): rank 0 {row['ms']:.3f} "
+            f"ms/step (median of {NCCL_TIMED}; each rank's "
+            f"{[round(m, 3) for m in row['rank_medians']]}), "
+            f"{row['img_s']:.2f} img/s over the ranks, t1/tN "
+            f"{row['efficiency']:.4f}, peak memory by rank "
+            f"{[round(p, 3) for p in row['peak_gib']]} GiB, launch to exit "
+            f"{row['launch_s']:.1f} s; {card}")
+    trace = steps[NCCL_CARDS]["trace"]
+    log(f"[nccl-trace] rank 0 of {NCCL_CARDS}, {NCCL_TRACED} steps under "
+        f"torch.profiler, per step: {json.dumps(trace)}; {card}")
+
+    log_path = os.path.join(tree, "cli_rank0.log")
+    t0 = time.perf_counter()
+    code = run_logged(
+        [sys.executable, "-m", "planerecnet_tpu_torch.train", "--config",
+         "PlaneRecNet_50_config", "--batch_size", str(NCCL_CARDS * BATCH),
+         "--no_autoscale", "--no_tensorboard", "--validation_epoch", "0",
+         "--cfg_overrides", json.dumps({"max_iter": NCCL_CLI_ITERS}),
+         "--save_interval", str(10 * NCCL_CLI_ITERS), "--save_folder",
+         "cli4/", "--log_folder", "cli4_logs/"], log_path, NCCL_TIMEOUT,
+        env=repo_env(PRN_DEBUG_BATCH_SUM="1"), cwd=tree)
+    seconds = time.perf_counter() - t0
+    if code:
+        raise AssertionError(f"the 4-card train CLI exited {code}:\n"
+                             f"{tail(log_path)}")
+    logs = [log_path] + [os.path.join(tree, "cli4_logs", "ranks",
+                                      f"worker{r}.log")
+                         for r in range(1, NCCL_CARDS)]
+    probes = [dp_probe(p) for p in logs]
+    for r, rows in enumerate(probes):
+        if [row[0] for row in rows] != list(range(NCCL_CLI_ITERS)):
+            raise AssertionError(f"4-card CLI, rank {r}: probes "
+                                 f"{[row[0] for row in rows]}")
+        for i in range(NCCL_CLI_ITERS - 1):
+            step = {k: rows[i + 1][2][k] - rows[i][2][k] for k in per_step}
+            if step != per_step:
+                raise AssertionError(f"4-card CLI, rank {r} step {i}: "
+                                     f"launches {step}")
+        launches[f"nccl_cli4_rank{r}"] = rows[-1][2]
+    t = [row[1] for row in probes[0]]
+    per = NCCL_CLI_FRAMES // (NCCL_CARDS * BATCH)
+    gaps = [(t[i + 1] - t[i]) * 1e3 for i in range(per, NCCL_CLI_ITERS - 1)
+            if (i + 1) % per]
+    cli_ms = float(np.median(gaps))
+    log(f"[nccl-cli] python -m planerecnet_tpu_torch.train with no "
+        f"--n_devices on {NCCL_CARDS} cards: global batch "
+        f"{NCCL_CARDS * BATCH} at {TRAIN_SIZE}x{TRAIN_SIZE} (8 a card, "
+        f"BatchNorm synced), f32, TF32 on, its loaders: {cli_ms:.1f} "
+        f"ms/step (median of steps within an epoch after the first, "
+        f"{[round(g, 1) for g in gaps]}), "
+        f"{NCCL_CARDS * BATCH / cli_ms * 1e3:.2f} img/s; launch to exit "
+        f"{seconds:.1f} s for {NCCL_CLI_ITERS} steps; every rank launched "
+        f"{json.dumps(per_step)} a step; {card}")
+    return ({"steps": {n: {k: v for k, v in row.items() if k != "trace"}
+                       for n, row in steps.items()},
+             "trace": trace, "cli4_ms": cli_ms,
+             "cli4_img_s": NCCL_CARDS * BATCH / cli_ms * 1e3}, launches)
+
+
+def phase_nccl(card):
+    """``--nccl``: items 1-5 above on one host's NCCL_CARDS cards, from a
+    work directory that holds phase 9's tree of 480x640 frames (its 24
+    train frames) and, generated meanwhile in a process of its own, the
+    4-card CLI's tree of 640x640 ones. Prints the numbers and the
+    launches by path as one ``[nccl]`` JSON line."""
+    import os
+    from planerecnet_tpu_torch.tools import synth_scenes
+    work = tempfile.mkdtemp(prefix="prn_nccl_")
+    tree = os.path.join(work, "tree640")
+    os.makedirs(tree)
+    synth = subprocess.Popen(
+        [sys.executable, "-m", "planerecnet_tpu_torch.tools.synth_scenes",
+         "--out", tree, "--train", str(NCCL_CLI_FRAMES), "--val", "0",
+         "--eval", "0", "--height", str(TRAIN_SIZE), "--width",
+         str(TRAIN_SIZE)], env=repo_env(), stdout=subprocess.DEVNULL)
+    cwd = os.getcwd()
+    try:
+        synth_scenes.generate_dataset(work, CLI_SPLITS[0], 0, 0, h=HEIGHT,
+                                      w=WIDTH, seed=0, progress=False)
+        os.chdir(work)
+        launches = nccl_dp(card, work)
+        launches |= nccl_spatial(card, work)
+        if synth.wait(timeout=NCCL_TIMEOUT):
+            raise AssertionError(f"synth_scenes exited {synth.returncode}")
+        numbers, timing = nccl_timing(card, work, tree)
+        launches |= timing
+    finally:
+        os.chdir(cwd)
+        if synth.poll() is None:
+            synth.kill()
+            synth.wait()
+        shutil.rmtree(work, ignore_errors=True)
+    print("[nccl] " + json.dumps({"numbers": numbers, "launches": launches,
+                                  "card": card}), flush=True)
+
+
 PATHS_REPEATS = 10
 
 
@@ -2998,7 +3602,13 @@ def main():
               "False)", file=sys.stderr)
         return 1
     if "--spatial_rank" in sys.argv:
-        return spatial_rank(sys.argv[sys.argv.index("--spatial_rank") + 1])
+        return spatial_rank(*sys.argv[sys.argv.index("--spatial_rank") + 1:])
+    if "--step_rank" in sys.argv:
+        return step_rank(sys.argv[sys.argv.index("--step_rank") + 1])
+    if "--nccl" in sys.argv and torch.cuda.device_count() < NCCL_CARDS:
+        print(f"chip_smoke --nccl: {torch.cuda.device_count()} card(s) "
+              f"visible, {NCCL_CARDS} needed", file=sys.stderr)
+        return 1
     from planerecnet_tpu_torch.config import PlaneRecNet_50_config
     from planerecnet_tpu_torch.ops import dcn
 
@@ -3009,6 +3619,9 @@ def main():
     phase_build()
     if "--tools" in sys.argv:
         tools_alone(card)
+        return 0
+    if "--nccl" in sys.argv:
+        phase_nccl(card)
         return 0
     if "--spatial" in sys.argv:
         spatial_window_cases(dcn)

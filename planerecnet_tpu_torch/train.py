@@ -1,10 +1,10 @@
 """The port's training CLI: ``python -m planerecnet_tpu_torch.train``.
 
-Counterpart of the repository's ``train.py`` on one card: the dataset on
-disk through ``SSDAugmentation``, ``BatchIterator`` and a
-``PrefetchIterator`` that uploads each batch from pinned memory on a
-stream of its own, then ``trainer.train_step`` per batch. Checkpoints keep
-the ``<name>_<epoch>_<iter>`` codec, ctrl-C writes ``*_interrupt``, resume
+Counterpart of the repository's ``train.py``: the dataset on disk
+through ``SSDAugmentation``, ``BatchIterator`` and a ``PrefetchIterator``
+that uploads each batch from pinned memory on a stream of its own, then
+``trainer.train_step`` per batch. Checkpoints keep the
+``<name>_<epoch>_<iter>`` codec, ctrl-C writes ``*_interrupt``, resume
 parses the start iteration from the file name, and a batch size other
 than 8 rescales lr, max_iter and lr_steps. A torchvision ImageNet ResNet
 ``.pth`` at ``<backbone_folder>/<backbone path>`` initialises the backbone
@@ -12,15 +12,22 @@ than 8 rescales lr, max_iter and lr_steps. A torchvision ImageNet ResNet
 valid images are logged every 5000 iterations. Runs on ``cuda`` unless
 ``--device cpu`` is passed.
 
-Data parallelism: ``--multihost`` joins the process group that
-``tools/run_multihost.py`` launches (``parallel.spmd.
-initialize_distributed``), one rank a card (NCCL) or on the CPU (gloo).
-``--batch_size`` is the global batch; each rank loads its rows of it
-(``BatchIterator`` shards) and ``trainer.train_step`` takes the global
-batch's step. ``--n_devices``, where given, must be the number of ranks.
-A per-rank batch below 6 freezes BatchNorm; from 6 BatchNorm trains on
-the global batch's statistics. Rank 0 alone prints progress and writes
-checkpoints and TensorBoard; the seed is rank 0's.
+Data parallelism: ``--n_devices`` ranks, by default every visible card
+(``torch.cuda.device_count()``, which honours ``CUDA_VISIBLE_DEVICES``),
+as the JAX CLI trains on ``len(jax.devices())``; 1 on the CPU. With more
+than one, ``main`` starts the ranks itself through
+``tools/run_multihost.py``, one process and one card each over NCCL (over
+gloo with ``--device cpu``), streams rank 0's output, returns rank 0's
+result and fails with the first failing rank's exit code; the others'
+logs go to ``<log_folder>/ranks/``. ``--multihost`` instead joins a
+process group that the launcher started (``parallel.spmd.
+initialize_distributed``), where ``--n_devices``, if given, must be the
+number of ranks. ``--batch_size`` is the global batch; each rank loads
+its rows of it (``BatchIterator`` shards) and ``trainer.train_step``
+takes the global batch's step. A per-rank batch below 6 freezes
+BatchNorm; from 6 BatchNorm trains on the global batch's statistics.
+Rank 0 alone prints progress and writes checkpoints and TensorBoard; the
+seed is rank 0's.
 
 ``--reproductablity`` seeds everything from 42 and, before the first CUDA
 call, pins the run to deterministic algorithms (``reproducible_mode``):
@@ -37,6 +44,9 @@ import math
 import os
 import random
 import signal
+import subprocess
+import sys
+import tempfile
 import time
 from typing import Dict, Optional
 
@@ -49,7 +59,7 @@ from planerecnet_tpu_torch.config import (apply_overrides, set_cfg,
 from planerecnet_tpu_torch.data import (BaseTransform, BatchIterator,
                                         PrefetchIterator, SSDAugmentation,
                                         build_dataset)
-from planerecnet_tpu_torch.ops import launch_counts
+from planerecnet_tpu_torch.ops import cuda_build, launch_counts
 from planerecnet_tpu_torch.parallel.mesh import Mesh, make_mesh, shard_batch
 from planerecnet_tpu_torch.parallel.spmd import initialize_distributed
 from planerecnet_tpu_torch.runner import PlaneRecNetRunner, resolve_device
@@ -65,6 +75,8 @@ LOG_EVERY = 50
 # host-RSS guard saved the state and exited because host memory crossed
 # --max_host_rss_gb.
 RECYCLE_EXIT_CODE = 75
+# Where rank 0 of ranks that ``main`` started writes its result (JSON).
+RESULT_FILE_VAR = "PRN_RESULT_FILE"
 
 
 def host_rss_gb() -> float:
@@ -198,9 +210,12 @@ def parse_args(argv=None):
                         help="5x learning rate for the backbone, 2x for the "
                              "depth decoder.")
     parser.add_argument("--n_devices", default=None, type=int,
-                        help="Data-parallel ranks (default: the process "
-                             "group's; 1 without --multihost). Must equal "
-                             "the number of ranks launched.")
+                        help="Data-parallel ranks, one card each (default: "
+                             "all visible cards on cuda, 1 on the CPU); "
+                             "more than one starts them here through "
+                             "tools/run_multihost.py. With --multihost: "
+                             "must equal the number of ranks launched "
+                             "(default: the process group's).")
     parser.add_argument("--dtype", default=None,
                         choices=[None, "float32", "bfloat16"],
                         help="Training compute dtype (default: the config's, "
@@ -234,18 +249,75 @@ def parse_args(argv=None):
 def main(argv=None) -> Dict:
     """Run the CLI. Returns ``start_iter`` and the final ``iteration``,
     the loader's mean occupancy, the last checkpoint written
-    (``checkpoint``) and the losses of the last drained step."""
+    (``checkpoint``) and the losses of the last drained step: rank 0's
+    where there are several ranks."""
     args = parse_args(argv)
+    if not args.multihost:
+        n = ranks_to_start(args.device, args.n_devices)
+        if n > 1:
+            return _start_ranks(sys.argv[1:] if argv is None else argv,
+                                args, n)
     with reproducible_mode(args.reproductablity):
         if not args.multihost:
-            return _train(args, make_mesh(resolve_device(args.device),
-                                          args.n_devices))
+            return _train(args, make_mesh(resolve_device(args.device)))
         mesh = initialize_distributed(args.device)
         try:
             make_mesh(mesh.device, args.n_devices)   # checks --n_devices
-            return _train(args, mesh)
+            result = _train(args, mesh)
         finally:
             torch.distributed.destroy_process_group()
+    if mesh.rank == 0 and os.environ.get(RESULT_FILE_VAR):
+        with open(os.environ[RESULT_FILE_VAR], "w") as f:
+            json.dump(result, f)
+    return result
+
+
+def ranks_to_start(device, n_devices: Optional[int]) -> int:
+    """The ranks that ``--n_devices`` asks for without ``--multihost``,
+    one card each: by default every visible card on ``cuda``
+    (``torch.cuda.device_count()``, which honours ``CUDA_VISIBLE_DEVICES``),
+    the JAX CLI's ``len(jax.devices())``, and 1 on the CPU. Raises where
+    more cards are asked for than are visible; with none visible, one
+    rank is asked for, which raises where it starts."""
+    if n_devices is not None and n_devices < 1:
+        raise ValueError(f"--n_devices {n_devices}: at least 1")
+    if torch.device(device).type != "cuda":
+        return n_devices or 1
+    visible = torch.cuda.device_count()
+    if n_devices is None:
+        return max(visible, 1)
+    if n_devices > max(visible, 1):
+        raise ValueError(
+            f"--n_devices {n_devices} asks for {n_devices} cards, but "
+            f"{visible} {'is' if visible == 1 else 'are'} visible "
+            f"(torch.cuda.device_count(), CUDA_VISIBLE_DEVICES); ranks on "
+            f"several hosts join with --multihost, started by "
+            f"planerecnet_tpu_torch.tools.run_multihost")
+    return n_devices
+
+
+def _start_ranks(argv, args, n: int) -> Dict:
+    """Run ``argv`` as ``n`` ranks with ``--multihost`` through the
+    launcher, on this host's cards (over NCCL; on the CPU over gloo),
+    the kernels built once before they start. Rank 0 writes to this
+    process's output, the others to ``<log_folder>/ranks/``. Returns rank
+    0's result; a failing rank raises ``SystemExit`` with its exit code
+    once the others are stopped."""
+    from planerecnet_tpu_torch.tools.run_multihost import launch
+    platform = torch.device(args.device).type
+    if platform == "cuda":
+        cuda_build.build()
+    with tempfile.TemporaryDirectory(prefix="prn_ranks_") as tmp:
+        result = os.path.join(tmp, "rank0.json")
+        try:
+            launch(n, list(argv) + ["--n_devices", str(n)],
+                   platform=platform,
+                   log_dir=os.path.join(args.log_folder, "ranks"),
+                   extra_env={RESULT_FILE_VAR: result}, stream_rank0=True)
+        except subprocess.CalledProcessError as e:
+            raise SystemExit(e.returncode) from None
+        with open(result) as f:
+            return json.load(f)
 
 
 def _train(args, mesh: Mesh) -> Dict:

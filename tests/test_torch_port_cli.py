@@ -4,8 +4,9 @@ The tiny preset at 64x64 on a synthetic ScanNet tree (48x80 PNG frames,
 written by the port's ``synth_scenes``): training saves, resumes from
 ``latest`` and from ``interrupt`` with the start iteration parsed from the
 file name, and exits 75 under the host-RSS guard; a batch of 2 rescales
-the schedule and freezes BatchNorm as the JAX CLI does; data parallelism
-without the launcher's ranks and an unreadable backbone ``.pth`` raise. The eval CLI's threshold flags set the
+the schedule and freezes BatchNorm as the JAX CLI does; more ranks than
+visible cards, ``--multihost`` without the launcher's ranks and an
+unreadable backbone ``.pth`` raise. The eval CLI's threshold flags set the
 fields the JAX CLI's set. The eval CLI on the trained checkpoint: device
 metrics equal host metrics, batch 2 gives batch 1's tables (depth within
 1e-5: the CPU convolutions sum a batch of one in another order), and the
@@ -134,14 +135,17 @@ def test_train_host_rss_guard_exits_75(workdir, monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("extra,match", [
-    (["--n_devices", "2"], "process group has 1"),
+    (["--device", "cuda", "--n_devices", "2"],
+     "asks for 2 cards, but 1 is visible"),
     (["--multihost"], "PRN_COORDINATOR_ADDRESS"),
 ], ids=["extra0-Queue 1 item 8", "extra1-Queue 1 item 8"])
 def test_train_refuses_what_is_not_ported(extra, match, monkeypatch):
-    """Data parallelism is ported (``tests/test_torch_port_parallel.py``);
-    without the launcher's ranks, ``--n_devices 2`` (one rank) and
-    ``--multihost`` (no rank 0 to join) raise, naming the launcher."""
+    """Data parallelism is ported (``tests/test_torch_port_parallel.py``,
+    ``tests/test_torch_port_multicard.py``); ``--n_devices 2`` on a host
+    with one card and ``--multihost`` without the launcher's ranks (no
+    rank 0 to join) raise, naming the launcher."""
     monkeypatch.delenv("PRN_COORDINATOR_ADDRESS", raising=False)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     with pytest.raises(ValueError, match=match + ".*run_multihost"):
         _train(extra)
 

@@ -40,7 +40,6 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 
 from planerecnet_tpu_torch import trainer
-from planerecnet_tpu_torch import train as ttrain
 from planerecnet_tpu_torch.config import PlaneRecNet_tiny_config, set_cfg
 from planerecnet_tpu_torch.losses import compute_losses, sample_vnl_indices
 from planerecnet_tpu_torch.models.planerecnet import PlaneRecNet
@@ -308,9 +307,3 @@ def test_vnl_rows_draw_the_global_batch(first):
                               rows=(first, 3))
     for key, value in whole.items():
         assert torch.equal(part[key], value[first:first + 1]), key
-
-
-def test_train_cli_n_devices_without_ranks_raises():
-    with pytest.raises(ValueError, match="run_multihost"):
-        with redirect_stdout(io.StringIO()):
-            ttrain.main(["--device", "cpu", "--n_devices", "2"])

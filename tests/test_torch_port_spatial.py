@@ -25,7 +25,17 @@ that XLA SPMD inserts in the JAX package is written by hand
   ``utils/weights.py::from_jax_variables``): 1e-4, as
   ``tests/test_spmd.py``. On 4 ranks C5 (2 rows) is whole and C4 is cut
   into 1-row shards. The same at 2x32x32 on the (1, 4) and (2, 2) meshes,
-  where the coarsest level is 1x1.
+  where the coarsest level is 1x1. In bf16 (``compute_dtype="bfloat16"``,
+  the halo exchanges carrying bf16 rows) on the (1, 2) and (2, 2) meshes:
+  against the JAX package's ``jit_forward(spatial=True)`` in bf16 on a
+  (1, 2) grid of the virtual CPU mesh (each image's rows split in two, as
+  on both of the port's grids), and against the port's unsplit bf16
+  forward, within 3e-2 of each output's largest magnitude (the bf16
+  tolerance of ``tests/test_torch_port_bf16.py``; each package rounds to
+  bf16 at other places). Not on JAX's (2, 2) grid: there the JAX
+  package's own bf16 outputs lie up to 0.17 of scale from its unsplit
+  ones (mask_pred, kernel_preds; its (1, 2), (1, 4) and (2, 1) grids
+  within 0.007), where the port's (2, 2) lies within 0.01 of its own.
 * The tiny preset's training step on a (2, 2) and a (1, 4) mesh,
   BatchNorm training (synced), against the JAX package's unsharded step
   and the port's own (4, 1): losses rel 2e-4 / abs 1e-5 and parameters
@@ -55,6 +65,8 @@ from torch import nn
 from planerecnet_tpu import trainer as jtrainer
 from planerecnet_tpu.config import PlaneRecNet_tiny_config as JaxTiny
 from planerecnet_tpu.models.planerecnet import PlaneRecNet as JaxPlaneRecNet
+from planerecnet_tpu.parallel.mesh import make_mesh as jax_make_mesh
+from planerecnet_tpu.parallel.spmd import jit_forward as jax_jit_forward
 from planerecnet_tpu_torch import trainer
 from planerecnet_tpu_torch.ops import dcn
 from planerecnet_tpu_torch.parallel import mesh as pmesh
@@ -73,12 +85,18 @@ torch.set_num_threads(2)
 LAUNCH_TIMEOUT = 120      # seconds the ranks of one spawn may take
 OP_TOL = 1e-5             # of the output's (or gradient's) scale
 FWD_TOL = dict(rtol=1e-4, atol=1e-4)           # tests/test_spmd.py
+BF16_TOL = 3e-2           # of scale, tests/test_torch_port_bf16.py
 LOSS_TOL = dict(rel=2e-4, abs=1e-5)            # tests/test_trainer.py
 PARAM_TOL = 1e-4
 LEAF_TOL = 2e-4
 SIZE = 64
 SMALL = 32                # the JAX test's size; its coarsest level is 1x1
 FWD_CFGS = {n: JaxTiny.copy(dict(max_size=n)) for n in (SIZE, SMALL)}
+BF16_CFG = FWD_CFGS[SIZE].copy(dict(compute_dtype="bfloat16"))
+# The bf16 forward's grid on each spawn's ranks; the JAX package's, on
+# which its bf16 outputs keep to its unsplit ones (module docstring).
+BF16_GRIDS = {2: (1, 2), 4: (2, 2)}
+JAX_BF16_GRID = (1, 2)
 STEP_CFG = JaxTiny.copy(dict(max_instances=2, max_positives=16,
                              vnl_samples=32))
 
@@ -165,6 +183,8 @@ def ranks(tmp_path_factory):
               images(size=SMALL, seed=1)),
              ({False: _step_cfgs()[False]}, jax_variables(STEP_CFG),
               _step_batch(SMALL), _vnl(SMALL)))
+    bf16 = (port_cfg(BF16_CFG), jax_variables(FWD_CFGS[SIZE]),
+            images(seed=1))
     ctx = mp.get_context("spawn")
     spawns = {}
     for n in (2, 4):
@@ -172,7 +192,7 @@ def ranks(tmp_path_factory):
         port = _free_port()
         procs = [ctx.Process(target=rank_main, args=(
             r, n, port, out_dir, fwd, steps if n == 4 else None,
-            small if n == 4 else None))
+            small if n == 4 else None, (BF16_GRIDS[n], bf16)))
             for r in range(n)]
         for p in procs:
             p.start()
@@ -180,6 +200,8 @@ def ranks(tmp_path_factory):
     try:
         _jax_step()
         _jax_step(SMALL)
+        _jax_forward_bf16(JAX_BF16_GRID)
+        _port_forward_bf16()
     finally:
         results = {}
         for n, (procs, out_dir) in spawns.items():
@@ -204,6 +226,30 @@ def _jax_forward(size=SIZE):
     return jax.jit(lambda v, x: model.apply(v, x, train=False))(
         nest(jax_variables(FWD_CFGS[size])),
         jnp.asarray(images(size=size, seed=1)))
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_forward_bf16(grid):
+    """The JAX package's ``jit_forward(spatial=True)`` in bf16 on a
+    (n_data, n_spatial) ``grid`` of the virtual CPU devices, as
+    ``tests/test_spmd.py`` runs it (outputs f32, numpy)."""
+    run = jax_jit_forward(BF16_CFG, jax_make_mesh(*grid), spatial=True)
+    out = run(nest(jax_variables(FWD_CFGS[SIZE])), jnp.asarray(
+        images(seed=1)))
+    return jax.tree_util.tree_map(
+        lambda a: np.asarray(a).astype(np.float32), out)
+
+
+@functools.lru_cache(maxsize=None)
+def _port_forward_bf16():
+    """The port's unsplit bf16 forward in this process (outputs f32)."""
+    model = trainer.create_train_state(
+        port_cfg(BF16_CFG), variables=jax_variables(FWD_CFGS[SIZE]),
+        device="cpu").model.eval()
+    with torch.no_grad():
+        out = model(torch.from_numpy(images(seed=1)))
+    return {k: ([t.float().numpy() for t in v] if isinstance(v, list)
+                else v.float().numpy()) for k, v in out.items()}
 
 
 @functools.lru_cache(maxsize=None)
@@ -297,15 +343,33 @@ def test_deform_conv2d_row_windows_add_up(stride):
 
 @pytest.mark.parametrize("n,run,size", [
     (2, "forward", SIZE), (4, "forward", SIZE), (4, "forward_2d", SIZE),
-    (4, "forward", SMALL), (4, "forward_2d", SMALL)],
-    ids=["1x2", "1x4", "2x2", "1x4-32x32", "2x2-32x32"])
+    (4, "forward", SMALL), (4, "forward_2d", SMALL),
+    (2, "forward_bf16", SIZE), (4, "forward_2d_bf16", SIZE)],
+    ids=["1x2", "1x4", "2x2", "1x4-32x32", "2x2-32x32", "1x2-bf16",
+         "2x2-bf16"])
 def test_spatial_forward_matches_jax(ranks, n, run, size):
     """``jit_forward(spatial=True)`` on a (1, 2), a (1, 4) and a (2, 2)
     mesh (one image a data index): every rank's outputs of the whole
-    batch against the JAX package's single-device apply."""
+    batch against the JAX package's single-device apply; in bf16, against
+    the JAX package's split bf16 forward (``JAX_BF16_GRID``) and the
+    port's unsplit bf16 forward, within ``BF16_TOL`` of each output's
+    scale."""
+    runs = [(r if size == SIZE else r["small"])[run] for r in ranks(n)]
+    if run.endswith("_bf16"):
+        wants = (_jax_forward_bf16(JAX_BF16_GRID), _port_forward_bf16())
+        for got, want in ((g, w) for g in runs for w in wants):
+            for key in ("cate_preds", "kernel_preds", "mask_pred",
+                        "depth_pred"):
+                pairs = (zip(got[key], want[key]) if isinstance(
+                    got[key], list) else [(got[key], want[key])])
+                for a, b in pairs:
+                    assert a.shape == b.shape, key
+                    scale = max(float(np.abs(b).max()), 1e-6)
+                    assert float(np.abs(a - b).max()) <= BF16_TOL * scale, \
+                        (key, float(np.abs(a - b).max()), scale)
+        return
     want = _jax_forward(size)
-    for got in [(r if size == SIZE else r["small"])[run]
-                for r in ranks(n)]:
+    for got in runs:
         for key in ("cate_preds", "kernel_preds"):
             for a, b in zip(got[key], want[key]):
                 np.testing.assert_allclose(a, np.asarray(b), err_msg=key,

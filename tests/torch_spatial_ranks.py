@@ -148,7 +148,7 @@ def op_results(mesh):
 
 
 def forward_results(mesh, cfg, flat, images):
-    """The whole raw-pred dict (numpy) of ``jit_forward(spatial=True)`` on
+    """The whole raw-pred dict (numpy, f32) of ``jit_forward(spatial=True)`` on
     ``mesh`` for weights ``flat`` on ``images``, and the bytes the
     forward's exchanges handed this rank and their number
     (``received_bytes``, ``exchanges``)."""
@@ -157,8 +157,8 @@ def forward_results(mesh, cfg, flat, images):
     halo.reset_traffic()
     preds = spmd.jit_forward(cfg, mesh, spatial=True)(
         model, torch.from_numpy(images))
-    out = {k: ([t.numpy() for t in v] if isinstance(v, list) else
-               v.numpy()) for k, v in preds.items()}
+    out = {k: ([t.float().numpy() for t in v] if isinstance(v, list) else
+               v.float().numpy()) for k, v in preds.items()}
     out["received_bytes"], out["exchanges"] = halo.traffic()
     return out
 
@@ -190,14 +190,16 @@ def step_results(n_data, n_spatial, cfgs, flat, batch, vnl, save_to=None):
     return out
 
 
-def rank_main(rank, n, port, out_dir, fwd, steps, small=None):
+def rank_main(rank, n, port, out_dir, fwd, steps, small=None, bf16=None):
     """One rank of an n-rank spawn: the op cases on the n-rank spatial
     axis, the forward on a (1, n) mesh (``fwd``: cfg, weights, images),
     and, given ``steps`` (cfgs, weights, batch, VNL triplets), the
     forward on a (2, n / 2) mesh and the steps of ``MESHES``; given
     ``small`` ((fwd, steps) at another size), both forwards and the
-    steps again at that size (``"small"``); saves ``rank{rank}.pt`` in
-    ``out_dir``."""
+    steps again at that size (``"small"``); given ``bf16`` ((n_data,
+    n_spatial), fwd with a bf16 config), the forward on that mesh
+    (``"forward_bf16"`` on a (1, n) mesh, else ``"forward_2d_bf16"``);
+    saves ``rank{rank}.pt`` in ``out_dir``."""
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
                             world_size=n, rank=rank)
@@ -208,6 +210,11 @@ def rank_main(rank, n, port, out_dir, fwd, steps, small=None):
         if steps:
             out["forward_2d"] = forward_results(
                 pmesh.make_mesh("cpu", 2, n // 2), *fwd)
+        if bf16:
+            grid, fwd_bf16 = bf16
+            key = "forward_bf16" if grid[0] == 1 else "forward_2d_bf16"
+            out[key] = forward_results(pmesh.make_mesh("cpu", *grid),
+                                       *fwd_bf16)
         for grid in (MESHES if steps else ()):
             save = (os.path.join(out_dir, "ckpt_2x2")
                     if grid == (2, 2) and rank == 0 else None)
