@@ -7,7 +7,9 @@
     python3 chip_smoke.py --paths
     python3 chip_smoke.py --spatial
     python3 chip_smoke.py --tools
+    python3 chip_smoke.py --remat
     python3 chip_smoke.py --nccl            # on a host with 4 cards
+    python3 chip_smoke.py --nccl_remat      # on a host with 4 cards
 
 ``--dice`` runs phases 1, 2 and the timed dice/lava shapes of 4 alone and
 prints no result line; ``--dcn`` runs phases 1, 2, the im2col's serving
@@ -28,7 +30,11 @@ fails on fewer) and prints ``[nccl]`` lines and no result line;
 ``--step_rank DIR`` is one rank of its timed steps. ``--tools`` runs
 phases 1, 2, 5 (for the
 request times that phase 18 checks against) and 18, on a tree of 8
-training frames of its own, and prints no result line.
+training frames of its own, and prints no result line. ``--remat`` runs
+phases 1, 2 and 7b alone and prints no result line. ``--nccl_remat``
+runs phases 1, 2 and ``--nccl``'s remat item alone (the unsplit rank on
+one card, then the (2, 2) mesh) and prints a ``[nccl-remat]`` line and no
+result line.
 
 1. device: each visible card's name and power limit (nvidia-smi).
 2. build: one ``nvcc`` per source in ``planerecnet_tpu_torch/csrc/``
@@ -92,6 +98,19 @@ training frames of its own, and prints no result line.
    backward's unmodulated samples), 13 (scatter), 4 and 4 (dice/lava),
    and the deterministic variants' not at all.
    One untimed step logs the spread of the DCN layers' offsets.
+7b. backbone remat (``remat_backbone``), from phase 7's weights and
+   batch, one step each with TF32 off: remat against none (the losses
+   within phase 8's rule, the gradients within its yardstick, every
+   BatchNorm buffer in every bit, the im2col launched 39 times: the
+   recomputed forward's 13 more), the same under ``--reproductablity``'s
+   switches and variants with the losses in every bit too, two remat
+   steps there equal in every bit of losses, gradients, buffers and
+   parameters, and ``fused_loss_kernel="off"`` against the kernels (no
+   dice/lava launch); then, cuDNN's TF32 on, 10 timed steps with and
+   without remat of PRN-50 at 8x640x640 in f32 and bf16 and PRN-101 at 8
+   and 16 in f32 (median ms, peak memory, launches, the "auto" decision,
+   which must not remat PRN-50's default step), and the fitting point
+   from PRN-101's peaks without remat against the code's constant.
 8. training CPU against GPU: one step of the tiny preset on the same
    weights, batch and VNL indices on both devices, TF32 off.
 9. the CLI path: a synthetic ScanNet tree (24 train, 8 valid, 8 eval
@@ -1428,14 +1447,19 @@ def zero_counts():
         setattr(fn, a, 0)
 
 
-def launches_per_step(deterministic):
-    """A PRN-50 training step's launches: the im2col twice a DCN layer,
-    then the scatter once a layer and dice/lava once a level, atomic or
-    deterministic."""
+def launches_per_step(deterministic, remat=False, layers=DCN_LAYERS_PRN50,
+                      bf16=False):
+    """A training step's launches (PRN-50's ``layers`` DCN layers by
+    default): the im2col twice a DCN layer (three times under remat: the
+    recomputed forward), then the scatter once a layer and dice/lava once
+    a level, atomic or deterministic; with ``bf16``, the forwards' im2col
+    launches of the bf16 instance."""
     per = {k: 0 for k in kernel_counters()}
-    per["dcn_im2col"] = 2 * DCN_LAYERS_PRN50
+    per["dcn_im2col"] = (3 if remat else 2) * layers
+    if bf16:
+        per["dcn_im2col_bf16"] = (2 if remat else 1) * layers
     sfx = "_det" if deterministic else ""
-    per["dcn_scatter" + sfx] = DCN_LAYERS_PRN50
+    per["dcn_scatter" + sfx] = layers
     per["dice_lava_fwd" + sfx] = per["dice_lava_bwd" + sfx] = DICE_LEVELS
     return per
 
@@ -1554,6 +1578,285 @@ def phase_train_cpu_vs_gpu():
         f"agree {json.dumps({k: [lc[k], lg[k]] for k in lc})}; gradients "
         f"of {len(errs)} leaves: median err {med:.3g}, 95th percentile "
         f"{p95:.3g}, max {errs[-1]:.3g} of the leaf scale")
+
+
+# Phase 7b: backbone rematerialisation (``cfg.remat_backbone``), from phase
+# 7's seeded perturbed weights and batch. The comparisons run with TF32
+# off, the timings with phase 7's settings (cuDNN's TF32 on). A step with
+# remat must give the losses of the step without it, its gradients within
+# phase 8's CPU-vs-GPU yardstick (``GRAD_YARDSTICK``: the median, 95th
+# percentile and largest of the leaves' errors over their scale) and
+# every BatchNorm buffer in every bit: a second update in the recompute
+# would move each running statistic by 0.9x and count it twice. With
+# BatchNorm training (phase 8 freezes it), a conv bias in front of a
+# training BatchNorm (the DCN layers', the depth decoder's) has a gradient
+# of 0 in exact arithmetic: its computed gradient is rounding noise, and
+# differs by ~1 of its scale between two runs of the same step (the
+# atomic kernels sum in no fixed order). So a leaf may pass the largest
+# error only by as much as DP_YARDSTICK_FACTOR times its error between
+# two runs of the step without remat.
+GRAD_YARDSTICK = (1e-4, 1e-3, 1e-2)
+REMAT_WARMUP, REMAT_TIMED = 2, 10
+# (preset, batch, compute dtype) of the timed steps, at 640x640.
+REMAT_TIMING = (("PlaneRecNet_50_config", 8, "float32"),
+                ("PlaneRecNet_50_config", 8, "bfloat16"),
+                ("PlaneRecNet_101_config", 8, "float32"),
+                ("PlaneRecNet_101_config", 16, "float32"))
+DCN_LAYERS = {"PlaneRecNet_50_config": DCN_LAYERS_PRN50,
+              "PlaneRecNet_101_config": 11}
+# The fitting point: the input bytes at which PRN-101's f32 step without
+# remat would take this share of the card's memory.
+REMAT_FIT_SHARE = 0.9
+
+
+def leaf_errors(got, want):
+    """{leaf: its gradient's largest error over its scale} (leaves above
+    1e-6)."""
+    return {k: float((got[k] - v).abs().max()) / float(v.abs().max())
+            for k, v in want.items() if float(v.abs().max()) > 1e-6}
+
+
+def grad_yardstick(got, want, noise):
+    """(median, 95th percentile, largest) of the gradient leaves' errors
+    over their scale, whether they pass phase 8's yardstick with each
+    leaf's largest bar raised to DP_YARDSTICK_FACTOR times its ``noise``
+    (``leaf_errors`` of two runs of one step), the leaves past 1e-2 (leaf,
+    error, noise), and whether every leaf agrees in every bit."""
+    errs = leaf_errors(got, want)
+    ranked = sorted(errs.values())
+    stats = (float(np.median(ranked)), float(np.quantile(ranked, 0.95)),
+             ranked[-1])
+    over = [(k, e, noise.get(k, 0.0)) for k, e in errs.items()
+            if e > GRAD_YARDSTICK[2]]
+    ok = (stats[0] <= GRAD_YARDSTICK[0] and stats[1] <= GRAD_YARDSTICK[1]
+          and all(e <= DP_YARDSTICK_FACTOR * n for _, e, n in over))
+    return (stats, ok, over,
+            all(torch.equal(got[k], v) for k, v in want.items()))
+
+
+def differing(got, want):
+    """The keys whose tensors differ in any bit."""
+    return [k for k, v in want.items() if not torch.equal(got[k], v)]
+
+
+def remat_step(cfg, batch, deterministic=False):
+    """One ``train_step`` of a fresh state of ``cfg`` from phase 7's seeded
+    perturbed weights, the counts set to 0 just before it: its losses,
+    launches and gradients, and the buffers and parameters after it."""
+    from planerecnet_tpu_torch import trainer
+    state = trainer.create_train_state(cfg, seed=0, device="cuda",
+                                       deterministic=deterministic)
+    perturb_(state.model, seed=1)
+    torch.cuda.synchronize()
+    zero_counts()
+    losses = trainer.train_step(state, batch)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    model = state.model
+    return dict(
+        losses=losses, launches=launches,
+        grads={n: p.grad.detach().clone()
+               for n, p in model.named_parameters()},
+        buffers={n: b.clone() for n, b in model.named_buffers()},
+        params={n: p.detach().clone() for n, p in model.named_parameters()})
+
+
+def time_steps(cfg, batch):
+    """``train_step`` of a fresh state of ``cfg`` (phase 7's weights):
+    REMAT_WARMUP steps, then REMAT_TIMED timed on the host's clock around
+    a synchronize. Returns (ms of each, peak GiB, launches)."""
+    from planerecnet_tpu_torch import trainer
+    state = trainer.create_train_state(cfg, seed=0, device="cuda")
+    perturb_(state.model, seed=1)
+    for _ in range(REMAT_WARMUP):
+        trainer.train_step(state, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    times = []
+    for _ in range(REMAT_TIMED):
+        t0 = time.perf_counter()
+        trainer.train_step(state, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    out = (times, torch.cuda.max_memory_allocated() / 2**30, read_counts())
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_remat(card, batch):
+    """Phase 7b. PRN-50 at 8x640x640 f32 from phase 7's state and
+    ``batch``, one step each, TF32 off: with ``remat_backbone=True``
+    against without (the losses within phase 8's rule, logged whether in
+    every bit; the gradients within ``GRAD_YARDSTICK``; every BatchNorm
+    buffer in every bit); under ``--reproductablity``'s switches and
+    variants the same, the losses in every bit too, and two remat steps
+    equal in every bit of the losses, gradients, buffers and parameters;
+    ``fused_loss_kernel="off"`` against the kernels (phase 8's rules, no
+    dice/lava launch); each step's launches (the im2col 39 under remat).
+    Then, TF32 on, REMAT_TIMED steps of each ``REMAT_TIMING`` shape with
+    and without remat: median ms, peak memory, launches, and the "auto"
+    decision; the fitting point measured from PRN-101's peaks without
+    remat at 8 and 16, against ``models/planerecnet.py``'s constant.
+    Returns the launches of the remat, the reproducible remat and the
+    "off" steps, and the numbers."""
+    from planerecnet_tpu_torch import train as train_cli
+    from planerecnet_tpu_torch.config import get_cfg
+    from planerecnet_tpu_torch.models.planerecnet import (
+        REMAT_FIT_BYTES, REMAT_FIT_CARD_BYTES, resolve_remat)
+    base = get_cfg("PlaneRecNet_50_config").copy(dict(lr_warmup_until=0))
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    runs = {name: remat_step(base.copy(dict(kw)), batch) for name, kw in (
+        ("off", {"remat_backbone": False}),
+        ("off_again", {"remat_backbone": False}),
+        ("on", {"remat_backbone": True}),
+        ("fused_off", {"remat_backbone": False,
+                       "fused_loss_kernel": "off"}))}
+    with train_cli.reproducible_mode(True):
+        for name, remat in (("det_off", False), ("det_on", True),
+                            ("det_on_again", True)):
+            runs[name] = remat_step(base.copy(dict(remat_backbone=remat)),
+                                    batch, deterministic=True)
+    (torch.backends.cudnn.allow_tf32,
+     torch.backends.cuda.matmul.allow_tf32) = tf32
+    compare_s = time.perf_counter() - t0
+
+    bad = []
+    fused_off = launches_per_step(False)
+    fused_off["dice_lava_fwd"] = fused_off["dice_lava_bwd"] = 0
+    expected = {"off": launches_per_step(False),
+                "off_again": launches_per_step(False),
+                "on": launches_per_step(False, remat=True),
+                "fused_off": fused_off,
+                "det_off": launches_per_step(True),
+                "det_on": launches_per_step(True, remat=True),
+                "det_on_again": launches_per_step(True, remat=True)}
+    for name, run in runs.items():
+        if run["launches"] != expected[name]:
+            bad.append(f"{name}: launches {run['launches']}, expected "
+                       f"{expected[name]}")
+
+    def losses_close(got, want, what):
+        off = {k: (float(got[k]), float(v)) for k, v in want.items()
+               if not abs(float(got[k]) - float(v))
+               <= 1e-4 * abs(float(v)) + 1e-6}
+        if off:
+            bad.append(f"{what}: losses off phase 8's rule {off}")
+        return not differing(got, want)
+
+    noise = leaf_errors(runs["off_again"]["grads"], runs["off"]["grads"])
+    summary = {"none twice": dict(
+        grad_errs=sorted(noise.values())[-1],
+        losses_bit_equal=not differing(runs["off_again"]["losses"],
+                                       runs["off"]["losses"]),
+        buffers_differing=len(differing(runs["off_again"]["buffers"],
+                                        runs["off"]["buffers"])))}
+    for what, a, b, strict in (("remat vs none", "on", "off", False),
+                               ("reproducible remat vs none", "det_on",
+                                "det_off", True),
+                               ("fused_loss off vs the kernels",
+                                "fused_off", "off", False)):
+        got, want = runs[a], runs[b]
+        loss_bits = losses_close(got["losses"], want["losses"], what)
+        if strict and not loss_bits:
+            bad.append(f"{what}: losses differ in bits "
+                       f"{differing(got['losses'], want['losses'])}")
+        stats, ok, over, grad_bits = grad_yardstick(
+            got["grads"], want["grads"], noise)
+        if not ok:
+            bad.append(f"{what}: gradients {stats} past {GRAD_YARDSTICK} "
+                       f"(leaves past 1e-2 with their noise: {over})")
+        buffers = differing(got["buffers"], want["buffers"])
+        if buffers and a != "fused_off":
+            bad.append(f"{what}: {len(buffers)} BatchNorm buffers differ "
+                       f"in bits, e.g. {buffers[:4]}")
+        summary[what] = dict(
+            losses_bit_equal=loss_bits, grad_errs=stats,
+            leaves_past_tol=over,
+            grads_bit_equal=grad_bits, buffers_differing=len(buffers),
+            losses={k: [float(got["losses"][k]), float(v)]
+                    for k, v in want["losses"].items()})
+    again = {part: differing(runs["det_on_again"][part], runs["det_on"][part])
+             for part in ("losses", "grads", "buffers", "params")}
+    if any(again.values()):
+        bad.append(f"reproducible remat twice: differing "
+                   f"{ {k: v[:4] for k, v in again.items() if v} }")
+    tracked = {int(v) for k, v in runs["on"]["buffers"].items()
+               if k.endswith("num_batches_tracked")}
+    log(f"[remat] PRN-50 {BATCH}x{TRAIN_SIZE}x{TRAIN_SIZE} f32, TF32 off, "
+        f"one step each from phase 7's weights ({compare_s:.1f} s): "
+        f"{json.dumps(summary)}; reproducible remat twice: "
+        f"{sum(len(runs['det_on'][p]) for p in again)} tensors, "
+        f"{sum(len(v) for v in again.values())} differing; "
+        f"num_batches_tracked after the remat step {sorted(tracked)}; "
+        f"launches {json.dumps({k: {n: c for n, c in r['launches'].items() if c} for k, r in runs.items()})}; "
+        f"{card}")
+    launches = {"remat": runs["on"]["launches"],
+                "remat_det": runs["det_on"]["launches"],
+                "fused_loss_off": runs["fused_off"]["launches"]}
+    del runs
+    torch.cuda.empty_cache()
+
+    memory = torch.cuda.get_device_properties(0).total_memory
+    batches = {BATCH: batch}
+    timings, peaks = [], {}
+    for preset, b, dtype in REMAT_TIMING:
+        if b not in batches:
+            batches[b] = synthetic_batch(b, TRAIN_SIZE, base.max_instances,
+                                         seed=3)
+        input_bytes = b * TRAIN_SIZE ** 2 * (2 if dtype == "bfloat16" else 4)
+        row = {"config": preset, "batch": b, "dtype": dtype,
+               "input_bytes": input_bytes,
+               "auto_remats": resolve_remat("auto", True, input_bytes,
+                                            memory)}
+        for remat in (False, True):
+            cfg = get_cfg(preset).copy(dict(
+                lr_warmup_until=0, compute_dtype=dtype, remat_backbone=remat))
+            times, peak, counts = time_steps(cfg, batches[b])
+            per = launches_per_step(False, remat=remat,
+                                    layers=DCN_LAYERS[preset],
+                                    bf16=dtype == "bfloat16")
+            if counts != {k: v * REMAT_TIMED for k, v in per.items()}:
+                bad.append(f"{preset} {b} {dtype} remat={remat}: launches "
+                           f"{counts} in {REMAT_TIMED} steps, expected {per} "
+                           f"a step")
+            key = "remat" if remat else "no_remat"
+            row[key] = {"ms": float(np.median(times)), "peak_gib": peak,
+                        "all_ms": [round(t, 3) for t in times]}
+            peaks[(preset, b, dtype, remat)] = peak * 2**30
+        row["remat_over_none"] = row["remat"]["ms"] / row["no_remat"]["ms"]
+        row["peak_saved_gib"] = (row["no_remat"]["peak_gib"]
+                                 - row["remat"]["peak_gib"])
+        timings.append(row)
+        log(f"[remat-time] {json.dumps(row)}; {card}")
+    if timings[0]["auto_remats"]:
+        bad.append("auto remats PRN-50's default 8x640x640 f32 step")
+    (b1, p1), (b2, p2) = ((b, peak) for (preset, b, dtype, remat), peak
+                          in peaks.items() if preset == "PlaneRecNet_101_config"
+                          and dtype == "float32" and not remat)
+    slope = (p2 - p1) / (b2 - b1)
+    fit_batch = b1 + (REMAT_FIT_SHARE * memory - p1) / slope
+    fit = {"card_bytes": memory, "peaks": {b1: p1, b2: p2},
+           "bytes_per_image": slope, "fit_batch": fit_batch,
+           "fit_bytes": fit_batch * TRAIN_SIZE ** 2 * 4,
+           "code_fit_bytes": REMAT_FIT_BYTES * memory / REMAT_FIT_CARD_BYTES,
+           "code_fit_card_bytes": REMAT_FIT_CARD_BYTES}
+    log(f"[remat-fit] PRN-101 f32 at {TRAIN_SIZE}x{TRAIN_SIZE} without "
+        f"remat: peak {p1 / 2**30:.3f} GiB at batch {b1}, "
+        f"{p2 / 2**30:.3f} at {b2}, "
+        f"{slope / 2**20:.1f} MiB an image; {REMAT_FIT_SHARE} of the card's "
+        f"{memory} B at batch {fit_batch:.2f}: fitting point "
+        f"{fit['fit_bytes']:.0f} B of input (B*H*W*4), the code's "
+        f"{fit['code_fit_bytes']:.0f} B on this card "
+        f"({REMAT_FIT_BYTES} B at {REMAT_FIT_CARD_BYTES} B); {card}")
+    if bad:
+        raise AssertionError(f"remat: {bad}")
+    return launches, {"timings": timings, "fit": fit}
 
 
 # The CLI path (phase 9): a synthetic ScanNet tree on disk, PRN-50 trained
@@ -2157,9 +2460,8 @@ def phase_bf16_train(card, train_ms, train_peak):
     from planerecnet_tpu_torch.config import PlaneRecNet_50_config
     cfg = PlaneRecNet_50_config.copy(dict(lr_warmup_until=0,
                                           compute_dtype="bfloat16"))
-    per_step = launches_per_step(deterministic=False)
     # The forward's im2col reads bf16 x, the backward's the f32 copy.
-    per_step["dcn_im2col_bf16"] = DCN_LAYERS_PRN50
+    per_step = launches_per_step(deterministic=False, bf16=True)
     state = trainer.create_train_state(cfg, seed=0, device="cuda")
     perturb_(state.model, seed=1)
     batch = synthetic_batch(BATCH, TRAIN_SIZE, cfg.max_instances, seed=3)
@@ -2539,10 +2841,11 @@ def norm_drifts(want, got):
 # ``serve``: the request shapes; ``dtype``: the config's compute dtype
 # (None: the preset's, f32); ``train``: SP_STEPS steps (and, on one rank,
 # the cuDNN-off yardstick); ``det_twice``: the same steps twice more
-# under ``--reproductablity``'s switches and variants; ``tag``: added to
-# the files' stem.
+# under ``--reproductablity``'s switches and variants; ``remat``: the
+# config's ``remat_backbone`` (the preset's "auto", or True); ``tag``:
+# added to the files' stem.
 SP_SPEC = {"n_data": 1, "serve": SP_SERVE, "dtype": None, "train": True,
-           "det_twice": False, "tag": ""}
+           "det_twice": False, "remat": "auto", "tag": ""}
 
 
 def spatial_rank(out_dir, spec=None):
@@ -2573,7 +2876,7 @@ def spatial_rank(out_dir, spec=None):
                          n_spatial=world.size // spec["n_data"])
         stem = os.path.join(out_dir, f"spatial{world.size}{spec['tag']}")
         first = world.rank == 0
-        cfg = PlaneRecNet_50_config
+        cfg = PlaneRecNet_50_config.copy(dict(remat_backbone=spec["remat"]))
         if spec["dtype"]:
             cfg = cfg.copy(dict(compute_dtype=spec["dtype"]))
         out = {"serve": {}, "train": {}}
@@ -2687,7 +2990,7 @@ def phase_spatial(card, work, backend="gloo"):
 
 def spatial_verify(card, work, one, split, one_s, split_s, where, tag="",
                    one_tag="", shapes=SP_SERVE, tol=SP_TOL, bf16=False,
-                   train=True):
+                   train=True, remat=False):
     """The split ranks' results ``split`` (files ``spatial{n}{tag}_*``)
     against the unsplit rank's ``one`` (``spatial1{one_tag}_*``).
     Serving: every output of each request shape in ``shapes`` within
@@ -2701,8 +3004,10 @@ def spatial_verify(card, work, one, split, one_s, split_s, where, tag="",
     ``DP_TOL`` at 6x640x640, PERF.md section 6) within phase 13's
     yardstick rule; after each step each module's norm of the Adam moments
     within SP_NORM_TOL of the one rank's or DP_YARDSTICK_FACTOR times the
-    yardstick's drift; each rank launching 26/13/4/4 a step. Returns each
-    rank's launches and the unsplit rank's, by path."""
+    yardstick's drift; each rank launching 26/13/4/4 a step (with
+    ``remat``, the split ranks 39/13/4/4: their steps recompute the
+    backbone, the unsplit rank's do not). Returns each rank's launches
+    and the unsplit rank's, by path."""
     import os
     n = len(split)
     dtype = "bf16" if bf16 else "f32"
@@ -2711,6 +3016,7 @@ def spatial_verify(card, work, one, split, one_s, split_s, where, tag="",
     if bf16:
         per_request["dcn_im2col_bf16"] = DCN_LAYERS_PRN50
     per_step = launches_per_step(deterministic=False)
+    per_split = launches_per_step(deterministic=False, remat=remat)
 
     def stem(k):
         return os.path.join(work, f"spatial{k}{tag if k == n else one_tag}")
@@ -2755,7 +3061,8 @@ def spatial_verify(card, work, one, split, one_s, split_s, where, tag="",
     if train:
         for r, res in enumerate(split + [one]):
             for i, step in enumerate(res["train"]["steps"]):
-                if step["launches"] != per_step:
+                if step["launches"] != (per_step if res is one
+                                        else per_split):
                     raise AssertionError(f"spatial train, rank {r} step {i}: "
                                          f"launches {step['launches']}")
         want = one["train"]["steps"][0]["losses"]
@@ -2821,7 +3128,7 @@ def spatial_verify(card, work, one, split, one_s, split_s, where, tag="",
         step_ms = [[round(s["ms"], 1) for s in res["train"]["steps"]]
                    for res in split]
         log(f"[spatial-train] PRN-50 {SP_BATCH}x{TRAIN_SIZE}x{TRAIN_SIZE} "
-            f"f32, "
+            f"f32{', remat on the split ranks' if remat else ''}, "
             f"TF32 off, BatchNorm synced, {n} ranks splitting the height "
             f"({where}): ms/step by rank "
             f"{step_ms} against one unsplit rank's "
@@ -2844,7 +3151,7 @@ def spatial_verify(card, work, one, split, one_s, split_s, where, tag="",
                   for s in (run["steps"] if path == "train" else [run])]
         return {k: sum(c[k] for c in counts) for k in counts[0]}
 
-    paths = ("serve", "train") if train else ("serve",)
+    paths = (("serve",) if shapes else ()) + (("train",) if train else ())
     return ({f"spatial_{p}_rank{r}": total(res, p)
              for p in paths for r, res in enumerate(split)}
             | {f"spatial_{p}_one_process": total(one, p) for p in paths})
@@ -3059,9 +3366,12 @@ def tools_alone(card):
 # ranks) on 2 and on 4 cards, against one rank on the same global
 # batches; the 4-card run twice, bit for bit; phases 15-16 on a (2, 2)
 # mesh, and its steps twice under ``--reproductablity``'s switches and
-# variants; phase 15's serving in bf16 on a (1, 2) mesh; then PRN-50's
-# default step (phase 7's settings) on 1, 2 and 4 cards, the 4-card step
-# through the CLI and its loaders, and a trace of rank 0 on 4 cards.
+# variants; phase 16's steps on the (2, 2) mesh with remat_backbone=True
+# against the unsplit rank without remat, and twice reproducibly
+# (``nccl_remat``); phase 15's serving in bf16 on a (1, 2) mesh; then
+# PRN-50's default step (phase 7's settings) on 1, 2 and 4 cards, the
+# 4-card step through the CLI and its loaders, and a trace of rank 0 on 4
+# cards.
 # Jobs that need fewer cards than the host has run side by side, each on
 # its own (``CUDA_VISIBLE_DEVICES``); the timed runs run alone.
 NCCL_CARDS = 4
@@ -3214,7 +3524,8 @@ def nccl_spatial(card, work):
     (phase 15's 8x480x640 requests, 4 images a data index, 240 rows a
     rank; phase 16's steps at 6x640x640) against one unsplit rank, and
     the same steps twice under ``--reproductablity``'s switches and
-    variants, equal in every bit of every array; phase 15's serving in
+    variants, equal in every bit of every array; the steps with
+    ``remat_backbone=True`` (``nccl_remat``); phase 15's serving in
     bf16 on a (1, 2) mesh against one unsplit bf16 rank, within phase
     11's RAW_BF16_TOL of each output's scale. Returns the launches by
     rank and path."""
@@ -3231,39 +3542,94 @@ def nccl_spatial(card, work):
         card, work, one[0], split, one_s, split_s,
         "4 ranks on a (2, 2) data x spatial mesh, one card each over nccl",
         tag=NCCL_2D["tag"], shapes=[tuple(s) for s in NCCL_2D["serve"]])
-    det_step = launches_per_step(deterministic=True)
-    for r, res in enumerate(split):
-        for run in ("train_det1", "train_det2"):
-            for i, step in enumerate(res[run]["steps"]):
-                if step["launches"] != det_step:
-                    raise AssertionError(f"(2, 2) {run}, rank {r} step {i}:"
-                                         f" launches {step['launches']}")
-    stem = os.path.join(work, f"spatial{NCCL_CARDS}{NCCL_2D['tag']}")
-    n_arrays = 0
-    for step in range(1, SP_STEPS + 1):
-        differ, n_arrays = differing_arrays(
-            f"{stem}_train_det1_step{step}.npz",
-            f"{stem}_train_det2_step{step}.npz")
-        if differ:
-            raise AssertionError(f"(2, 2) with --reproductablity's switches "
-                                 f"twice: {len(differ)} of {n_arrays} arrays "
-                                 f"differ after step {step}, e.g. "
-                                 f"{differ[:5]}")
-    log(f"[nccl-spatial] (2, 2) mesh, {SP_STEPS} steps twice under "
-        f"--reproductablity's switches and variants: every array of the "
-        f"checkpoints ({n_arrays}) equal in every bit after each step; "
-        f"each rank launched {json.dumps(det_step)} a step")
+    launches |= nccl_det_twice(work, split, NCCL_2D["tag"])
+    launches |= nccl_remat(card, work, one[0], one_s)
     launches |= {k.replace("spatial_", "spatial_bf16_"): v for k, v in
                  spatial_verify(
                      card, work, one_bf16[0], split_bf16, one_bf16_s,
                      split_bf16_s, "2 ranks, one card each over nccl",
                      tag=NCCL_BF16["tag"], one_tag=NCCL_BF16["tag"],
                      tol=RAW_BF16_TOL, bf16=True, train=False).items()}
-    for r, res in enumerate(split):
-        launches[f"spatial_det_rank{r}"] = {
-            k: sum(s["launches"][k] for run in ("train_det1", "train_det2")
-                   for s in res[run]["steps"]) for k in det_step}
     return {"nccl_" + k: v for k, v in launches.items()}
+
+
+def nccl_det_twice(work, split, tag, remat=False):
+    """The (2, 2) ranks' ``spatial_rank`` results ``split`` (files
+    ``spatial4{tag}_*``): their SP_STEPS steps twice under
+    ``--reproductablity``'s switches and variants, every array of the
+    checkpoints equal in every bit after each step, each rank launching
+    the variants (and, with ``remat``, the recompute's im2col) a step.
+    Returns each rank's launches of those steps."""
+    import os
+    det_step = launches_per_step(deterministic=True, remat=remat)
+    for r, res in enumerate(split):
+        for run in ("train_det1", "train_det2"):
+            for i, step in enumerate(res[run]["steps"]):
+                if step["launches"] != det_step:
+                    raise AssertionError(f"(2, 2){tag} {run}, rank {r} step "
+                                         f"{i}: launches {step['launches']}")
+    stem = os.path.join(work, f"spatial{NCCL_CARDS}{tag}")
+    n_arrays = 0
+    for step in range(1, SP_STEPS + 1):
+        differ, n_arrays = differing_arrays(
+            f"{stem}_train_det1_step{step}.npz",
+            f"{stem}_train_det2_step{step}.npz")
+        if differ:
+            raise AssertionError(f"(2, 2){tag} with --reproductablity's "
+                                 f"switches twice: {len(differ)} of "
+                                 f"{n_arrays} arrays differ after step "
+                                 f"{step}, e.g. {differ[:5]}")
+    log(f"[nccl-spatial] (2, 2) mesh{', remat' if remat else ''}, "
+        f"{SP_STEPS} steps twice under --reproductablity's switches and "
+        f"variants: every array of the checkpoints ({n_arrays}) equal in "
+        f"every bit after each step; each rank launched "
+        f"{json.dumps(det_step)} a step")
+    return {f"spatial{tag.replace('_2x2', '')}_det_rank{r}": {
+        k: sum(s["launches"][k] for run in ("train_det1", "train_det2")
+               for s in res[run]["steps"]) for k in det_step}
+        for r, res in enumerate(split)}
+
+
+# ``--nccl``'s remat item: phase 16's steps on the (2, 2) mesh with
+# ``remat_backbone=True`` (the recompute's halo exchanges and
+# ``SyncBatchNorm2d`` all-reduces inside DDP's backward), against the one
+# unsplit rank without remat, and twice under ``--reproductablity``.
+NCCL_2D_REMAT = {"n_data": 2, "serve": [], "remat": True, "det_twice": True,
+                 "tag": "_2x2_remat"}
+NCCL_ONE_TRAIN = {"serve": [], "tag": "_train"}
+
+
+def nccl_remat(card, work, one, one_s, one_tag=""):
+    """``NCCL_2D_REMAT`` on the host's 4 cards against the unsplit rank's
+    results ``one`` (files ``spatial1{one_tag}_*``) under
+    ``spatial_verify``'s training rules, then ``nccl_det_twice``. Returns
+    the launches by rank and path."""
+    split, split_s = spatial_launch(work, NCCL_CARDS, "nccl",
+                                    json.dumps(NCCL_2D_REMAT))
+    tag = NCCL_2D_REMAT["tag"]
+    launches = {k.replace("spatial_", "spatial_remat_"): v for k, v in
+                spatial_verify(card, work, one, split, one_s, split_s,
+                               "4 ranks on a (2, 2) data x spatial mesh, "
+                               "one card each over nccl, remat_backbone=True",
+                               tag=tag, one_tag=one_tag, shapes=(),
+                               remat=True).items()}
+    return launches | nccl_det_twice(work, split, tag, remat=True)
+
+
+def nccl_remat_alone(card):
+    """``--nccl_remat``: the unsplit rank's steps (``NCCL_ONE_TRAIN``, no
+    serving) on one card, then ``nccl_remat`` on the host's 4; prints the
+    launches as one ``[nccl-remat]`` JSON line."""
+    work = tempfile.mkdtemp(prefix="prn_nccl_remat_")
+    try:
+        one, one_s = spatial_launch(work, 1, "nccl",
+                                    json.dumps(NCCL_ONE_TRAIN), cards="0")
+        launches = nccl_remat(card, work, one[0], one_s,
+                              one_tag=NCCL_ONE_TRAIN["tag"])
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print("[nccl-remat] " + json.dumps({"launches": launches, "card": card}),
+          flush=True)
 
 
 def label_collectives():
@@ -3605,8 +3971,9 @@ def main():
         return spatial_rank(*sys.argv[sys.argv.index("--spatial_rank") + 1:])
     if "--step_rank" in sys.argv:
         return step_rank(sys.argv[sys.argv.index("--step_rank") + 1])
-    if "--nccl" in sys.argv and torch.cuda.device_count() < NCCL_CARDS:
-        print(f"chip_smoke --nccl: {torch.cuda.device_count()} card(s) "
+    four = [f for f in ("--nccl", "--nccl_remat") if f in sys.argv]
+    if four and torch.cuda.device_count() < NCCL_CARDS:
+        print(f"chip_smoke {four[0]}: {torch.cuda.device_count()} card(s) "
               f"visible, {NCCL_CARDS} needed", file=sys.stderr)
         return 1
     from planerecnet_tpu_torch.config import PlaneRecNet_50_config
@@ -3622,6 +3989,15 @@ def main():
         return 0
     if "--nccl" in sys.argv:
         phase_nccl(card)
+        return 0
+    if "--nccl_remat" in sys.argv:
+        nccl_remat_alone(card)
+        return 0
+    if "--remat" in sys.argv:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = True      # phase 7's settings
+        phase_remat(card, synthetic_batch(
+            BATCH, TRAIN_SIZE, PlaneRecNet_50_config.max_instances, seed=3))
         return 0
     if "--spatial" in sys.argv:
         spatial_window_cases(dcn)
@@ -3673,6 +4049,9 @@ def main():
     del runner
     state, batch, launches, train_ms, train_peak = phase_train(train_cfg,
                                                                card)
+    del state
+    torch.cuda.empty_cache()
+    remat, _ = phase_remat(card, batch)
     phase_train_cpu_vs_gpu()
     work = tempfile.mkdtemp(prefix="prn_cli_")
     try:
@@ -3703,12 +4082,14 @@ def main():
                  f"{TRAIN_SIZE}x{TRAIN_SIZE}, f32")
 
     def new_paths(name):
-        """This kernel's launches on the paths of phases 11-13, 15-16 and
-        18: one bf16 request, the bf16 training phase's timed steps, each
-        data-parallel rank's run and the one-process twin's, each spatial
-        rank's timed requests and steps and the unsplit rank's, and the
-        tools' runs."""
-        return {"serve_bf16": serve_bf16[name], "train_bf16": train_bf16[name],
+        """This kernel's launches on the paths of phases 7b, 11-13, 15-16
+        and 18: the remat step (by default, with the reproducible
+        variants, and with ``fused_loss_kernel="off"``), one bf16 request,
+        the bf16 training phase's timed steps, each data-parallel rank's
+        run and the one-process twin's, each spatial rank's timed requests
+        and steps and the unsplit rank's, and the tools' runs."""
+        return {**{path: n[name] for path, n in remat.items()},
+                "serve_bf16": serve_bf16[name], "train_bf16": train_bf16[name],
                 **{f"dp_rank{r}": n[name] for r, n in enumerate(dp_ranks)},
                 "dp_one_process": dp_one[name],
                 **{path: n[name] for path, n in spatial.items()},

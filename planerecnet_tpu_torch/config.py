@@ -8,7 +8,8 @@ packages. This is a copy, not an import: the port depends on nothing of
 the JAX package.
 
 ``compute_dtype="auto"`` resolves to float32 here; ``"bfloat16"`` is taken
-when it is set explicitly.
+when it is set explicitly. ``remat_backbone="auto"`` has the JAX rule's
+form with the H100's own fitting point (``models/planerecnet.py``).
 """
 
 from __future__ import annotations
@@ -291,6 +292,15 @@ class PlaneRecNetConfig(_FrozenBase):
     solov2: SOLOv2Config = solov2_base
     # "float32", "bfloat16", or "auto" (= float32).
     compute_dtype: str = "auto"
+    # The dice/lava loss: "auto" and "on" through ``ops.dice_lava``'s
+    # kernels (their plain version on the CPU), "off" through the plain
+    # PyTorch composition on either device.
+    fused_loss_kernel: str = "auto"
+    # Recompute each backbone bottleneck's activations in the backward
+    # instead of storing them: True, False, or "auto", which remats only
+    # when gradients flow and the input would not fit the card without
+    # it (``models/planerecnet.py::resolve_remat``).
+    remat_backbone: object = "auto"
 
 
 PlaneRecNet_base_config = PlaneRecNetConfig()
@@ -326,6 +336,7 @@ PlaneRecNet_tiny_config = PlaneRecNet_50_config.copy(dict(
         num_grids=(8, 8, 4, 4),
         nms_pre=16, top_k=8, max_candidates=32)),
     max_instances=4, max_positives=16, vnl_samples=32,
+    remat_backbone=False,
 ))
 
 

@@ -15,6 +15,7 @@ import argparse
 import json
 import os
 import random
+import time
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -33,7 +34,6 @@ from planerecnet_tpu_torch.evaluation import (DEPTH_METRICS, calc_map,
 from planerecnet_tpu_torch.runner import PlaneRecNetRunner, resolve_device
 from planerecnet_tpu_torch.utils import (MovingAverage, ProgressBar,
                                          SavePath)
-from planerecnet_tpu_torch.utils import timer
 
 
 def parse_args(argv=None):
@@ -246,34 +246,33 @@ def evaluate(net: PlaneRecNetRunner, dataset, during_training=False,
 
     for lo in range(0, len(dataset_indices), batch_size):
         chunk = dataset_indices[lo:lo + batch_size]
-        timer.reset()
-        with timer.env("everything"):
-            items = [dataset.pull_item(i) for i in chunk]
-            images = np.stack([im for im, _, _ in items])
-            if len(items) < batch_size:   # pad the tail batch (discarded)
-                reps = np.repeat(images[-1:], batch_size - len(items), axis=0)
-                images = np.concatenate([images, reps], axis=0)
-            h, w = images.shape[1:3]
-            n_cap = net.cfg.max_instances
-            gts = [gt for _, gt, _ in items]
-            # the COCO dump needs the full binarised masks on host
-            use_dev = dumper is None and device_metrics and all(
-                len(g["classes"]) <= n_cap for g in gts)
-            if use_dev:
-                gt_pad = np.zeros((images.shape[0], n_cap, h, w), np.float32)
-                for j, g in enumerate(gts):
-                    m = np.asarray(g["masks"], np.float32)
-                    if m.size:
-                        gt_pad[j, :m.shape[0]] = m.reshape(-1, h, w)
-                batched = net.infer_normalized_with_gt_iou(
-                    images, gt_pad, (h, w))
-            else:
-                batched = net.infer_normalized(images, (h, w))
-            batched = _host(batched)   # waits for the device
+        t0 = time.perf_counter()
+        items = [dataset.pull_item(i) for i in chunk]
+        images = np.stack([im for im, _, _ in items])
+        if len(items) < batch_size:   # pad the tail batch (discarded)
+            reps = np.repeat(images[-1:], batch_size - len(items), axis=0)
+            images = np.concatenate([images, reps], axis=0)
+        h, w = images.shape[1:3]
+        n_cap = net.cfg.max_instances
+        gts = [gt for _, gt, _ in items]
+        # the COCO dump needs the full binarised masks on host
+        use_dev = dumper is None and device_metrics and all(
+            len(g["classes"]) <= n_cap for g in gts)
+        if use_dev:
+            gt_pad = np.zeros((images.shape[0], n_cap, h, w), np.float32)
+            for j, g in enumerate(gts):
+                m = np.asarray(g["masks"], np.float32)
+                if m.size:
+                    gt_pad[j, :m.shape[0]] = m.reshape(-1, h, w)
+            batched = net.infer_normalized_with_gt_iou(
+                images, gt_pad, (h, w))
+        else:
+            batched = net.infer_normalized(images, (h, w))
+        batched = _host(batched)   # waits for the device
 
         clipped_images += int(np.asarray(
             batched.get("candidates_clipped", np.zeros(1))).reshape(-1)[0])
-        batch_ms = timer.total_time() * 1000 / max(len(chunk), 1)
+        batch_ms = (time.perf_counter() - t0) * 1000 / max(len(chunk), 1)
 
         for j, (_, gt_instances, gt_depth) in enumerate(items):
             it += 1

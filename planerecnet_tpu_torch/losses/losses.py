@@ -6,9 +6,11 @@ around its mass centre on each level, compacted to ``max_positives`` slots),
 then dice (instance masks), sigmoid focal (categories), RMSE of log depth,
 the VNL plane loss and the lava loss, weighted and returned as a dict.
 
-The dice and lava terms always go through ``ops/dice_lava.py``'s fused
-reductions (the kernels on the card, their plain versions on the CPU), so
-the loss has one formulation everywhere. The lava loss uses the adjoint
+The dice and lava terms go through ``ops/dice_lava.py``'s fused reductions
+(the kernels on the card, their plain versions on the CPU) unless
+``cfg.fused_loss_kernel`` is "off", which takes the plain PyTorch
+composition (``fused_dice_lava_plain``, differentiated by autograd) on
+either device; both compute the same sums. The lava loss uses the adjoint
 identity sum(resize(m) * G) == sum(m * adjoint(G)): the gradient map is
 pulled back to mask resolution once per image.
 
@@ -28,7 +30,8 @@ import torch.nn.functional as F
 from planerecnet_tpu_torch.config import PlaneRecNetConfig
 from planerecnet_tpu_torch.losses.vnl import (sample_vnl_indices,
                                               vnl_loss_from_indices)
-from planerecnet_tpu_torch.ops.dice_lava import fused_dice_lava
+from planerecnet_tpu_torch.ops.dice_lava import (fused_dice_lava,
+                                                fused_dice_lava_plain)
 from planerecnet_tpu_torch.ops.image import (_resize_weights, reflect_pad,
                                              resize_bilinear)
 
@@ -250,7 +253,8 @@ def compute_losses(cfg: PlaneRecNetConfig, preds: Dict, batch: Dict,
     ``vnl_indices`` (as ``losses.vnl.sample_vnl_indices`` returns them, for
     the first ``vnl_max_planes`` valid planes) are given.
     ``deterministic`` sends the fused dice/lava loss to its kernels'
-    fixed-order variants.
+    fixed-order variants. ``cfg.fused_loss_kernel``: "auto" or "on" (the
+    kernels), "off" (the plain composition); another value raises.
 
     With a ``mesh`` (``parallel/mesh.py``), ``batch`` is this rank's rows
     of the global batch, and each loss is this rank's
@@ -268,6 +272,8 @@ def compute_losses(cfg: PlaneRecNetConfig, preds: Dict, batch: Dict,
     gt_valid = batch["gt_valid"].bool()
     gt_depths = batch["depth"].float()
 
+    if cfg.fused_loss_kernel not in ("auto", "on", "off"):
+        raise ValueError(f"fused_loss_kernel {cfg.fused_loss_kernel!r}")
     num_levels = len(cate_preds)
     b, hm, wm, n_k = mask_pred.shape
     losses: Dict[str, torch.Tensor] = {}
@@ -301,8 +307,13 @@ def compute_losses(cfg: PlaneRecNetConfig, preds: Dict, batch: Dict,
         pvalid = gt["pos_valids"][lvl].float()
         k_sel = torch.gather(kp, 1, cells[..., None].expand(-1, -1, n_k))
         onehot = F.one_hot(insts, n_inst).float() * pvalid[..., None]
-        a, bb, dots = fused_dice_lava(k_sel, mask_flat, onehot, targets_flat,
-                                      grad_low_flat, deterministic)
+        if cfg.fused_loss_kernel == "off":
+            a, bb, dots = fused_dice_lava_plain(k_sel, mask_flat, onehot,
+                                                targets_flat, grad_low_flat)
+        else:
+            a, bb, dots = fused_dice_lava(k_sel, mask_flat, onehot,
+                                          targets_flat, grad_low_flat,
+                                          deterministic)
         c = torch.gather(target_areas, 1, insts)
         d = 1.0 - (2 * a) / ((bb + 0.001) + (c + 0.001))
         dice_sum = dice_sum + (d * pvalid).sum()

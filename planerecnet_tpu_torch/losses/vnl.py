@@ -15,6 +15,14 @@ as the JAX package splits ``vnl_loss_ori`` at ``_vnl_ori_from_indices``. The
 two packages' random streams differ, so the tests feed the port the
 indices that JAX's sampler drew.
 
+``vnl_loss_ori`` is the JAX package's whole-image virtual-normal loss
+(the reference's ``VNL_Loss_ori``, which its training loop never calls;
+neither package trains with it): three uniform pixel draws over the
+whole image per triplet, each image its own (``sample_vnl_ori_indices``),
+the triplets filtered on the GT geometry, the L1 distance of the GT and
+predicted normals, pooled over the batch, and with ``select`` the easiest
+quarter dropped (``vnl_loss_ori_from_indices``).
+
 The JAX package's documented divergences from the reference hold here too:
 a fixed sample count per plane; 0 (not NaN) for a plane with no valid
 triplet; the intended z-clamp of predicted points at depth 0.
@@ -31,6 +39,9 @@ DELTA_Z = 1e-4
 DELTA_COS = 0.985
 DELTA_DIFF_PLANE = 0.005
 DELTA_DIFF_NONPLANAR = 0.1
+# The whole-image loss's filter (the reference's VNL_Loss_ori).
+DELTA_COS_ORI = 0.867
+DELTA_DIFF_ORI = 0.005
 
 
 def _sample_mask_indices(generator: Optional[torch.Generator],
@@ -188,3 +199,65 @@ def vnl_loss_from_indices(pred_depth: torch.Tensor, gt_depth: torch.Tensor,
     with_np = (losses_sum + np_loss) / (n_planes + 1.0).clamp(min=1.0)
     without = losses_sum / n_planes.clamp(min=1.0)
     return torch.where(has_np, with_np, without)
+
+
+def sample_vnl_ori_indices(generator: Optional[torch.Generator], b: int,
+                           h: int, w: int, num_samples: int,
+                           device=None) -> torch.Tensor:
+    """Flat pixel ids (B, 3, M) of ``vnl_loss_ori``'s triplets: three
+    uniform draws over the whole H x W image per triplet, each image its
+    own."""
+    return torch.randint(0, h * w, (b, 3, num_samples), generator=generator,
+                         device=device)
+
+
+def vnl_loss_ori_from_indices(gt_depth: torch.Tensor,
+                              pred_depth: torch.Tensor, fx, fy,
+                              indices: torch.Tensor,
+                              delta_cos: float = DELTA_COS_ORI,
+                              delta_diff: float = DELTA_DIFF_ORI,
+                              delta_z: float = DELTA_Z,
+                              select: bool = True) -> torch.Tensor:
+    """The whole-image VNL loss (a scalar) from triplet ids ``indices``
+    (B, 3, M). gt_depth, pred_depth (B, H, W); fx, fy the focal lengths
+    (numbers, or tensors of one value or one per image). Each triplet's
+    loss is sum_xyz |n_gt - n_pred| of its unit normals in the GT and the
+    predicted point clouds (the predicted depth 0 read as 1e-4); the
+    triplets that pass the GT filter are pooled over the batch, and their
+    mean taken over the hardest 75% with ``select``, else over all."""
+    b, h, w = gt_depth.shape
+    fx, fy = (torch.as_tensor(f, dtype=torch.float32,
+                              device=gt_depth.device).reshape(-1).expand(b)
+              for f in (fx, fy))
+    u0, v0 = w // 2, h // 2
+    pw_gt = _form_triplets(gt_depth.reshape(b, -1), indices, fx, fy, u0, v0,
+                           w)
+    valid = _filter_mask(pw_gt, delta_z, delta_cos=delta_cos,
+                         delta_diff=delta_diff)
+    pw_pred = _form_triplets(pred_depth.reshape(b, -1), indices, fx, fy, u0,
+                             v0, w)
+    z = pw_pred[..., 2, :]
+    pw_pred = torch.cat([pw_pred[..., :2, :],
+                         torch.where(z == 0, 1e-4, z)[..., None, :]], dim=-2)
+    loss = (_normals(pw_gt) - _normals(pw_pred)).abs().sum(-1).reshape(-1)
+    valid = valid.reshape(-1)
+    if select:
+        return _hardest75_mean(loss, valid)
+    return (torch.where(valid, loss, 0.0).sum()
+            / valid.float().sum().clamp(min=1.0))
+
+
+def vnl_loss_ori(generator: Optional[torch.Generator],
+                 gt_depth: torch.Tensor, pred_depth: torch.Tensor, fx, fy,
+                 num_samples: int = 2048, delta_cos: float = DELTA_COS_ORI,
+                 delta_diff: float = DELTA_DIFF_ORI,
+                 delta_z: float = DELTA_Z, select: bool = True
+                 ) -> torch.Tensor:
+    """The whole-image virtual-normal loss with ``num_samples`` triplets
+    an image drawn from ``generator`` (the JAX package's
+    ``vnl_loss_ori``)."""
+    b, h, w = gt_depth.shape
+    idx = sample_vnl_ori_indices(generator, b, h, w, num_samples,
+                                 gt_depth.device)
+    return vnl_loss_ori_from_indices(gt_depth, pred_depth, fx, fy, idx,
+                                     delta_cos, delta_diff, delta_z, select)

@@ -10,13 +10,30 @@ A block's deformable conv2 replaces the 3x3 conv, chosen per block by
 Every forward takes an optional spatial context ``rows``
 (``parallel/halo.py::Rows``): with it, each layer runs on this rank's rows
 of its map through the row-window ops of ``models/layers.py``.
+
+``ResNetBackbone.forward(x, rows, remat=True)`` recomputes each stage
+bottleneck's activations in the backward instead of storing them, as the
+JAX package's ``nn.remat(Bottleneck)`` does: a block keeps only its input,
+and the backward runs its forward again (``torch.utils.checkpoint``,
+non-reentrant). The recompute normalises with the batch's statistics as
+the forward did, and the BatchNorm running statistics are put back as the
+forward left them (``_running_stats_kept``), so that they are updated
+once a step, from the forward, as flax's ``batch_stats`` are. The stem
+and the extra stages are not recomputed, as in JAX.
+
+Where ``selected_layers`` reaches past the ResNet's stages, stride-2
+bottleneck stages of 256 planes (1024 channels) are appended, as the JAX
+package's ``extra{e}_0`` blocks (``backbone.layers.{4 + e}.0`` here, as
+the reference appends them to ``layers``).
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Sequence, Tuple
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from planerecnet_tpu_torch.config import BackboneConfig
@@ -159,12 +176,44 @@ def _stage_plan(layers: Sequence[int], dcn_layers: Sequence[int],
     return plan
 
 
+@contextlib.contextmanager
+def _running_stats_kept(module: nn.Module):
+    """The BatchNorm running statistics and ``num_batches_tracked`` under
+    ``module`` as they were when it opened, put back when it closes. The
+    recompute runs the block's norms as the forward ran them, so that it
+    saves the same tensors (the batch's statistics normalise, the
+    all-reduces of ``SyncBatchNorm2d`` run again on every rank alike), and
+    each buffer keeps the forward's one update of the step."""
+    bufs = [buf for m in module.modules() if isinstance(m, nn.BatchNorm2d)
+            for buf in (m.running_mean, m.running_var,
+                        m.num_batches_tracked)]
+    kept = [buf.clone() for buf in bufs]
+    try:
+        yield
+    finally:
+        with torch.no_grad():
+            for buf, old in zip(bufs, kept):
+                buf.copy_(old)
+
+
+def _remat(block: nn.Module, x: torch.Tensor, rows) -> torch.Tensor:
+    """``block(x, rows)`` with its activations recomputed in the backward.
+    No op of a bottleneck draws random numbers, so the RNG state is not
+    kept; autocast is restored for the recompute by the checkpoint."""
+    return torch.utils.checkpoint.checkpoint(
+        block, x, rows, use_reentrant=False, preserve_rng_state=False,
+        context_fn=lambda: (contextlib.nullcontext(),
+                            _running_stats_kept(block)))
+
+
 class ResNetBackbone(nn.Module):
-    """ResNet stem + bottleneck stages; ``forward`` returns C2..C5."""
+    """ResNet stem + bottleneck stages (+ ``extra_layers`` stride-2
+    stages); ``forward`` returns C2..C5 (and the extra stages' maps)."""
 
     def __init__(self, layers: Tuple[int, ...],
                  dcn_layers: Tuple[int, ...] = (0, 0, 0, 0),
                  dcn_interval: int = 1, atrous_layers: Tuple[int, ...] = (),
+                 extra_layers: int = 0,
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
@@ -189,30 +238,39 @@ class ResNetBackbone(nn.Module):
                                             use_dcn=dcn_flags[i],
                                             dtype=dtype))
             self.layers.append(nn.Sequential(*stage))
+        self.base_stages = len(layers)
+        for _ in range(extra_layers):
+            self.layers.append(nn.Sequential(Bottleneck(
+                inplanes, 256, stride=2, has_downsample=True, dtype=dtype)))
+            inplanes = 256 * Bottleneck.expansion
 
     @property
     def channels(self) -> Tuple[int, ...]:
-        return (256, 512, 1024, 2048)[:len(self.layers)]
+        extra = len(self.layers) - self.base_stages
+        return (256, 512, 1024, 2048)[:self.base_stages] + (1024,) * extra
 
-    def forward(self, x: torch.Tensor, rows=None
+    def forward(self, x: torch.Tensor, rows=None, remat: bool = False
                 ) -> Tuple[torch.Tensor, ...]:
         x = self.relu(batch_norm(self.bn1, conv2d(self.conv1, x, rows), rows))
         x = max_pool2d(self.maxpool, x, rows)
+        remat = remat and torch.is_grad_enabled()
         outs = []
-        for stage in self.layers:
+        for s, stage in enumerate(self.layers):
             for block in stage:
-                x = block(x, rows)
+                x = (_remat(block, x, rows) if remat and s < self.base_stages
+                     else block(x, rows))
             outs.append(x)
         return tuple(outs)
 
 
 def construct_backbone(cfg: BackboneConfig,
                        dtype: Optional[torch.dtype] = None) -> ResNetBackbone:
-    if max(cfg.selected_layers) + 1 > len(cfg.layers):
-        raise ValueError("extra backbone stages beyond the ResNet's are not "
-                         "supported (no preset selects them)")
+    """The backbone of ``cfg``, with a stride-2 stage appended for each
+    selected layer past the ResNet's stages."""
     return ResNetBackbone(layers=tuple(cfg.layers),
                           dcn_layers=tuple(cfg.dcn_layers),
                           dcn_interval=cfg.dcn_interval,
                           atrous_layers=tuple(cfg.atrous_layers),
+                          extra_layers=max(0, max(cfg.selected_layers) + 1
+                                           - len(cfg.layers)),
                           dtype=dtype)

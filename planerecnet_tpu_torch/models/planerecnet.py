@@ -16,6 +16,10 @@ mesh axis (``parallel/halo.py::Rows``): ``x`` holds this rank's rows of
 the images, every map is row-sharded or whole as the context's rule
 gives it, the instance head runs on its S x S grids whole on every rank,
 and the dict returned is the whole images' on every rank.
+
+``cfg.remat_backbone`` decides, call by call, whether the backbone's
+blocks are recomputed in the backward (``resolve_remat``): the JAX
+package's rule with the card's own fitting point, measured on an H100.
 """
 
 from __future__ import annotations
@@ -35,6 +39,32 @@ from planerecnet_tpu_torch.ops.image import resize_bilinear
 
 # The instance branch always has four levels (p2 halved, p3, p4, p5).
 NUM_INSTANCE_LEVELS = 4
+
+# ``remat_backbone="auto"``'s fitting point: the input's bytes, B * H * W
+# times the compute dtype's itemsize, at which PRN-101's f32 training step
+# without remat would reach 90% of the card's memory, by the line through
+# its peaks at 8 and 16 x640x640 (17.923 and 34.259 GiB: batch 34.12,
+# ``chip_smoke.py``'s phase 7b on an "NVIDIA H100 80GB HBM3, 700.00 W"),
+# and that card's memory (``total_memory``); another card scales it by its
+# own memory. PRN-50's default 8x640x640 f32 step (13,107,200 B) and
+# PRN-101's at 16 (26,214,400 B) stay without remat.
+REMAT_FIT_BYTES = 55_904_367
+REMAT_FIT_CARD_BYTES = 85_017_493_504
+
+
+def resolve_remat(setting, grad: bool, input_bytes: int,
+                  card_bytes: Optional[int]) -> bool:
+    """Whether the backbone recomputes its blocks in the backward. True and
+    False force it; "auto" remats only where gradients flow (``grad``), on
+    a card (``card_bytes``, its memory; None on the CPU), and for an input
+    of more than the card's fitting point."""
+    if setting is True or setting is False:
+        return setting
+    if setting != "auto":
+        raise ValueError(f"remat_backbone {setting!r}")
+    if not grad or card_bytes is None:
+        return False
+    return input_bytes > REMAT_FIT_BYTES * card_bytes / REMAT_FIT_CARD_BYTES
 
 
 def compute_dtype(cfg: PlaneRecNetConfig) -> Optional[torch.dtype]:
@@ -104,9 +134,15 @@ class PlaneRecNet(nn.Module):
 
     def forward(self, x: torch.Tensor, spatial=None) -> Dict:
         cfg, rows = self.cfg, spatial
+        remat = resolve_remat(
+            cfg.remat_backbone, torch.is_grad_enabled(),
+            x.shape[0] * x.shape[1] * x.shape[2]
+            * (2 if self.dtype == torch.bfloat16 else 4),
+            torch.cuda.get_device_properties(x.device).total_memory
+            if x.device.type == "cuda" else None)
         with torch.autocast(x.device.type, dtype=torch.bfloat16,
                             enabled=self.dtype == torch.bfloat16):
-            feats = self.backbone(x.permute(0, 3, 1, 2), rows)
+            feats = self.backbone(x.permute(0, 3, 1, 2), rows, remat=remat)
             features = self.fpn([feats[i] for i in cfg.fpn.selected_layers],
                                 rows)
             # Instance branch: halve p2 so the level strides are 8, 8, 16, 32.

@@ -5,6 +5,7 @@
         [--dtype float32|bfloat16] [--iters 20] [--warmup 2]
         [--no_dcn] [--forward_only] [--net_grad_only [--aux_losses]]
         [--losses ins,cat,dpt [--no_opt]] [--fused_loss on|off]
+        [--remat auto|on|off | --no_remat]
         [--split_timing] [--trace DIR] [--device cuda]
 
 Counterpart of ``tools/profile_train.py``. Times the full training step
@@ -25,16 +26,17 @@ update); ``--net_grad_only`` (the gradient of sum(preds^2) through the
 network alone; ``--aux_losses`` also computes the losses on the detached
 predictions); ``--losses`` (only the named losses give gradients, and
 ``pln``/``lav`` are switched off unless named; ``--no_opt`` then skips
-Adam); ``--fused_loss off`` (the dice/lava loss as its plain PyTorch
-composition instead of the CUDA kernels: a profiling ablation, never the
-trainer's path); ``--split_timing`` (the gradient, ``trainer.grad_step``,
+Adam); ``--fused_loss on|off`` (sets ``cfg.fused_loss_kernel``: off
+takes the dice/lava loss's plain PyTorch composition instead of the CUDA
+kernels); ``--remat auto|on|off`` (sets ``cfg.remat_backbone``;
+``--no_remat`` is ``--remat off``); ``--split_timing`` (the gradient, ``trainer.grad_step``,
 and the update, ``trainer.apply_grads`` with its host sync, each timed
 alone, with a synchronize between them; also the forward with losses and
 the backward apart); ``--trace DIR`` (three steps under ``torch.profiler``
 before the timed loop, the trace and its kernel table written to DIR by
-``parse_trace.record``). The JAX tool's ``--remat`` and ``--dcn_vjp``
-have no counterpart: the port keeps no remat, and its DCN always runs
-its autograd Function with the hand-written scatter kernel.
+``parse_trace.record``). The JAX tool's ``--dcn_vjp`` has no
+counterpart: the port's DCN always runs its autograd Function with the
+hand-written scatter kernel.
 
 The upstream reference trains 125k iterations in ~37 h on an RTX 3090
 (~1065.6 ms/iter, its README): ``vs_baseline`` is a ratio across cards.
@@ -43,11 +45,9 @@ The upstream reference trains 125k iterations in ~37 h on an RTX 3090
 from __future__ import annotations
 
 import argparse
-import contextlib
 import json
 import time
 from typing import Callable, Dict, List, Optional
-from unittest import mock
 
 import numpy as np
 import torch
@@ -119,9 +119,14 @@ def parse_args(argv=None):
     p.add_argument("--losses", default=None, type=str,
                    help="comma list of the losses that give gradients "
                         "(e.g. 'ins,cat,dpt' drops VNL and lava)")
-    p.add_argument("--fused_loss", default="on", choices=["on", "off"],
-                   help="ablation: off takes the dice/lava loss's plain "
-                        "PyTorch composition instead of its kernels")
+    p.add_argument("--fused_loss", default=None, choices=["on", "off"],
+                   help="override cfg.fused_loss_kernel (off: the dice/lava "
+                        "loss's plain PyTorch composition, not its kernels)")
+    p.add_argument("--remat", default=None, choices=["auto", "on", "off"],
+                   help="override cfg.remat_backbone (default: the config's "
+                        "'auto' rule)")
+    p.add_argument("--no_remat", action="store_true",
+                   help="shorthand for --remat off")
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises where there is no card) or "
                         "cpu")
@@ -132,6 +137,12 @@ def config(args):
     """The preset with the ablations' switches."""
     from planerecnet_tpu_torch.config import set_cfg
     cfg = set_cfg(args.config).copy(dict(compute_dtype=args.dtype))
+    remat = "off" if args.no_remat else args.remat
+    if remat is not None:
+        cfg = cfg.copy(dict(remat_backbone={
+            "auto": "auto", "on": True, "off": False}[remat]))
+    if args.fused_loss is not None:
+        cfg = cfg.copy(dict(fused_loss_kernel=args.fused_loss))
     if args.no_dcn:
         cfg = cfg.copy(dict(backbone=cfg.backbone.copy(dict(
             dcn_layers=(0, 0, 0, 0)))))
@@ -140,26 +151,6 @@ def config(args):
         cfg = cfg.copy(dict(use_plane_loss="pln" in keep,
                             use_lava_loss="lav" in keep))
     return cfg
-
-
-@contextlib.contextmanager
-def fused_loss(on: bool):
-    """With ``on`` False, the losses' dice/lava term is the plain PyTorch
-    composition (``ops.dice_lava.fused_dice_lava_plain``, differentiated
-    by autograd) instead of the kernels' autograd Function."""
-    if on:
-        yield
-        return
-    from planerecnet_tpu_torch.losses import losses
-    from planerecnet_tpu_torch.ops.dice_lava import fused_dice_lava_plain
-
-    def plain(kernels, mask_feat, onehot, targets, grad_low,
-              deterministic=False):
-        return fused_dice_lava_plain(kernels, mask_feat, onehot, targets,
-                                     grad_low)
-
-    with mock.patch.object(losses, "fused_dice_lava", plain):
-        yield
 
 
 def make_step(args, state) -> Callable[[Dict], Dict[str, torch.Tensor]]:
@@ -275,36 +266,36 @@ def main(argv: Optional[List[str]] = None,
     print(f"state init and upload: {time.perf_counter() - t0:.1f}s",
           flush=True)
     out = {"config": cfg.name, "batch": args.batch_size, "size": args.size,
-           "dtype": args.dtype,
+           "dtype": args.dtype, "remat_backbone": cfg.remat_backbone,
+           "fused_loss_kernel": cfg.fused_loss_kernel,
            "device": (torch.cuda.get_device_name(dev)
                       if dev.type == "cuda" else "cpu")}
-    with fused_loss(args.fused_loss == "on"):
-        step = make_step(args, state)
-        t0 = time.perf_counter()
-        out["first_losses"] = {k: float(v) for k, v in
-                               step(batches[0]).items()}
-        sync(dev)
-        print(f"first step: {time.perf_counter() - t0:.1f}s", flush=True)
-        for i in range(args.warmup):
-            step(batches[(i + 1) % NUM_BATCHES])
-        if args.trace:
-            it = iter(range(3))
-            summary = parse_trace.record(
-                lambda: step(batches[next(it) % NUM_BATCHES]), 3,
-                args.trace, "step", dev)
-            out["trace"] = summary["trace"]
-            out["busy_ms"], out["idle_share"] = (summary["busy_ms"],
-                                                 summary["idle_share"])
-        if args.split_timing:
-            out["split_ms"] = split_timing(state, batches, args.iters)
-        if dev.type == "cuda":
-            torch.cuda.reset_peak_memory_stats(dev)
-        sync(dev)
-        t0 = time.perf_counter()
-        for i in range(args.iters):
-            losses = step(batches[i % NUM_BATCHES])
-        sync(dev)
-        ms = (time.perf_counter() - t0) * 1e3 / args.iters
+    step = make_step(args, state)
+    t0 = time.perf_counter()
+    out["first_losses"] = {k: float(v) for k, v in
+                           step(batches[0]).items()}
+    sync(dev)
+    print(f"first step: {time.perf_counter() - t0:.1f}s", flush=True)
+    for i in range(args.warmup):
+        step(batches[(i + 1) % NUM_BATCHES])
+    if args.trace:
+        it = iter(range(3))
+        summary = parse_trace.record(
+            lambda: step(batches[next(it) % NUM_BATCHES]), 3,
+            args.trace, "step", dev)
+        out["trace"] = summary["trace"]
+        out["busy_ms"], out["idle_share"] = (summary["busy_ms"],
+                                             summary["idle_share"])
+    if args.split_timing:
+        out["split_ms"] = split_timing(state, batches, args.iters)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    sync(dev)
+    t0 = time.perf_counter()
+    for i in range(args.iters):
+        losses = step(batches[i % NUM_BATCHES])
+    sync(dev)
+    ms = (time.perf_counter() - t0) * 1e3 / args.iters
     total = float(losses["total"])
     out.update({
         "metric": f"train step ms/iter ({args.config}, bs="

@@ -23,6 +23,9 @@ _BN = {"scale": "weight", "bias": "bias", "mean": "running_mean",
        "var": "running_var"}
 _GN = {"scale": "weight", "bias": "bias"}
 _CONV_KERNELS = ("kernel", "regular_conv_kernel")
+# The ResNet's stages: the JAX package names the backbone's extra stages
+# ``extra{e}_0`` after them, the port ``backbone.layers.{4 + e}.0``.
+BASE_STAGES = 4
 
 
 def _conv_leaf(leaf: str) -> str:
@@ -36,9 +39,13 @@ def _backbone_key(rest) -> Optional[str]:
     if rest[0] == "bn1":
         return f"backbone.bn1.{_BN[leaf]}"
     m = re.fullmatch(r"layer(\d+)_(\d+)", rest[0])
-    if not m:
+    extra = re.fullmatch(r"extra(\d+)_0", rest[0])
+    if m:
+        prefix = f"backbone.layers.{m.group(1)}.{m.group(2)}"
+    elif extra:
+        prefix = f"backbone.layers.{BASE_STAGES + int(extra.group(1))}.0"
+    else:
         return None
-    prefix = f"backbone.layers.{m.group(1)}.{m.group(2)}"
     sub = rest[1]
     if sub in ("bn1", "bn2", "bn3"):
         return f"{prefix}.{sub}.{_BN[leaf]}"
@@ -218,7 +225,8 @@ def _torch_key_to_jax(tkey: str) -> Optional[str]:
         if parts[1] == "bn1":
             return _bn_path(module, "bn1", leaf=leaf)
         _, _, stage, block, sub, *rest = parts
-        name = f"layer{stage}_{block}"
+        name = (f"layer{stage}_{block}" if int(stage) < BASE_STAGES
+                else f"extra{int(stage) - BASE_STAGES}_{block}")
         if sub in ("bn1", "bn2", "bn3"):
             return _bn_path(module, name, sub, leaf=leaf)
         if sub == "downsample":

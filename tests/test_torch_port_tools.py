@@ -111,7 +111,8 @@ def _first_losses_of_trainer(flags, set_weights=None):
 @pytest.mark.parametrize("flags", [[], ["--forward_only"],
                                    ["--losses", "ins,cat,dpt", "--no_opt"],
                                    ["--losses", "ins,cat,dpt,pln,lav"],
-                                   ["--fused_loss", "off"]])
+                                   ["--fused_loss", "off"],
+                                   ["--remat", "on"], ["--no_remat"]])
 def test_profile_train_losses_equal_trainer(flags):
     out = _quiet(profile_train.main, TRAIN_ARGS + flags)
     want = _first_losses_of_trainer(flags)

@@ -14,6 +14,7 @@ import torch.distributed as dist
 from torch import nn
 
 from planerecnet_tpu_torch import trainer
+from planerecnet_tpu_torch.models import backbone
 from planerecnet_tpu_torch.models.backbone import DeformableConv2d
 from planerecnet_tpu_torch.models.layers import (GroupNorm, batch_norm,
                                                  conv2d, group_norm,
@@ -228,4 +229,30 @@ def rank_main(rank, n, port, out_dir, fwd, steps, small=None, bf16=None):
                 **{grid: step_results(*grid, *steps_s) for grid in MESHES}}
         torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
     finally:
+        dist.destroy_process_group()
+
+
+def remat_rank_main(rank, n, port, out_dir, grid, steps):
+    """One rank of an n-rank spawn of ``tests/test_torch_port_remat.py``:
+    ``step_results`` on the (n_data, n_spatial) ``grid`` for ``steps``
+    (cfgs, weights, batch, VNL triplets), and the blocks this rank ran
+    under remat (``"remat_blocks"``); saves ``rank{rank}.pt`` in
+    ``out_dir``."""
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=n, rank=rank)
+    calls = []
+    remat = backbone._remat
+
+    def counted(block, x, rows):
+        calls.append(rows is not None)
+        return remat(block, x, rows)
+
+    backbone._remat = counted
+    try:
+        out = step_results(*grid, *steps)
+        out["remat_blocks"] = calls
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        backbone._remat = remat
         dist.destroy_process_group()
