@@ -1,0 +1,9 @@
+"""``device_idle_share.train``'s reading, in the training cells whose
+rate is ``train_img_per_s.remat`` (the backbone recomputed in the
+backward)."""
+
+from pathlib import Path
+
+from benchmark.spec import reader
+
+read = reader(Path(__file__).with_name("device_idle_share.train.py"))
