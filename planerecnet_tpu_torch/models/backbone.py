@@ -40,6 +40,7 @@ from planerecnet_tpu_torch.config import BackboneConfig
 from planerecnet_tpu_torch.models.layers import (BatchNorm2d, batch_norm,
                                                  conv2d, max_pool2d)
 from planerecnet_tpu_torch.ops.dcn import deform_conv2d
+from planerecnet_tpu_torch.utils.timer import span
 
 
 class DeformableConv2d(nn.Module):
@@ -196,14 +197,21 @@ def _running_stats_kept(module: nn.Module):
                 buf.copy_(old)
 
 
+@contextlib.contextmanager
+def _recompute(module: nn.Module):
+    """The checkpoint's second run of ``module``, in the backward: a
+    ``backbone.recompute`` span, with the BatchNorm statistics kept."""
+    with span("backbone.recompute"), _running_stats_kept(module):
+        yield
+
+
 def _remat(block: nn.Module, x: torch.Tensor, rows) -> torch.Tensor:
     """``block(x, rows)`` with its activations recomputed in the backward.
     No op of a bottleneck draws random numbers, so the RNG state is not
     kept; autocast is restored for the recompute by the checkpoint."""
     return torch.utils.checkpoint.checkpoint(
         block, x, rows, use_reentrant=False, preserve_rng_state=False,
-        context_fn=lambda: (contextlib.nullcontext(),
-                            _running_stats_kept(block)))
+        context_fn=lambda: (contextlib.nullcontext(), _recompute(block)))
 
 
 class ResNetBackbone(nn.Module):

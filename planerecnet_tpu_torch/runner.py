@@ -18,6 +18,7 @@ from planerecnet_tpu_torch.models.planerecnet import PlaneRecNet
 from planerecnet_tpu_torch.ops.image import fast_base_transform
 from planerecnet_tpu_torch.ops.postprocess import postprocess_batch
 from planerecnet_tpu_torch.utils import checkpoint, torch_convert
+from planerecnet_tpu_torch.utils.timer import span
 from planerecnet_tpu_torch.utils.weights import (flatten_variables,
                                                  from_jax_variables, load_npz)
 
@@ -97,9 +98,14 @@ class PlaneRecNetRunner:
               ) -> Dict[str, torch.Tensor]:
         """Full pipeline on (B, H, W, 3) raw BGR pixels in [0, 255];
         ``ori_size`` sets the output mask/depth size (default: input)."""
-        x = self._batch(images_bgr)
-        preds = self.model(fast_base_transform(x))
-        return postprocess_batch(preds, self.cfg, ori_size or x.shape[1:3])
+        with span("runner.request"):
+            with span("runner.upload"):
+                x = self._batch(images_bgr)
+            with span("runner.forward"):
+                preds = self.model(fast_base_transform(x))
+            with span("runner.postprocess"):
+                return postprocess_batch(preds, self.cfg,
+                                         ori_size or x.shape[1:3])
 
     @torch.no_grad()
     def infer_normalized(self, images, ori_size: Optional[Tuple[int, int]]

@@ -65,6 +65,7 @@ from planerecnet_tpu_torch.parallel.halo import Rows, gather_rows
 from planerecnet_tpu_torch.parallel.mesh import Mesh, replicated
 from planerecnet_tpu_torch.parallel.spmd import convert_sync_batchnorm
 from planerecnet_tpu_torch.runner import resolve_device
+from planerecnet_tpu_torch.utils.timer import span
 from planerecnet_tpu_torch.utils.weights import (flatten_variables,
                                                  from_jax_variables)
 
@@ -212,7 +213,8 @@ def grad_step(state: TrainState, batch: Mapping,
     BatchNorm running statistics as they were before the forward). With
     a mesh the gradients and the losses are the global batch's; with a
     spatial axis ``batch`` holds this rank's rows (``local_rows``)."""
-    batch = unpack_wire_batch(state.cfg, batch, state.device)
+    with span("trainer.upload"):
+        batch = unpack_wire_batch(state.cfg, batch, state.device)
     mesh, rows = state.mesh, None
     if mesh is not None and mesh.n_spatial > 1:
         image = batch["image"]
@@ -223,14 +225,17 @@ def grad_step(state: TrainState, batch: Mapping,
     saved = [buf.clone() for buf in _bn_buffers(state.model)]
     state.optimizer.zero_grad(set_to_none=True)
     net = state.model if state.replica is None else state.replica
-    preds = (net(batch["image"]) if rows is None
-             else net(batch["image"], spatial=rows))
-    losses = compute_losses(state.cfg, preds, batch, vnl_indices=vnl_indices,
-                            generator=state.generator(),
-                            deterministic=state.deterministic,
-                            mesh=None if mesh is None else mesh.data_axis())
-    total = sum(losses.values())
-    (total if rows is None else total / mesh.n_spatial).backward()
+    with span("trainer.forward"):
+        preds = (net(batch["image"]) if rows is None
+                 else net(batch["image"], spatial=rows))
+    with span("trainer.loss"):
+        losses = compute_losses(
+            state.cfg, preds, batch, vnl_indices=vnl_indices,
+            generator=state.generator(), deterministic=state.deterministic,
+            mesh=None if mesh is None else mesh.data_axis())
+        total = sum(losses.values())
+    with span("trainer.backward"):
+        (total if rows is None else total / mesh.n_spatial).backward()
     losses = dict(losses, total=total)
     if state.mesh is not None:
         summed = state.mesh.all_sum(torch.stack(list(losses.values())))
@@ -242,17 +247,19 @@ def apply_grads(state: TrainState, total: torch.Tensor,
                 saved_bn: List[torch.Tensor]) -> bool:
     """Adam's update, or, when ``total`` is not finite, no update and the
     BatchNorm running statistics put back. Returns whether it applied."""
-    finite = bool(torch.isfinite(total))
-    if finite:
-        lr = state.schedule(state.updates)
-        for group in state.optimizer.param_groups:
-            group["lr"] = lr * group["lr_mult"]
-        state.optimizer.step()
-        state.updates += 1
-    else:
-        with torch.no_grad():
-            for buf, old in zip(_bn_buffers(state.model), saved_bn):
-                buf.copy_(old)
+    with span("trainer.apply_grads"):
+        with span("trainer.finite_read"):
+            finite = bool(torch.isfinite(total))
+        if finite:
+            lr = state.schedule(state.updates)
+            for group in state.optimizer.param_groups:
+                group["lr"] = lr * group["lr_mult"]
+            state.optimizer.step()
+            state.updates += 1
+        else:
+            with torch.no_grad():
+                for buf, old in zip(_bn_buffers(state.model), saved_bn):
+                    buf.copy_(old)
     state.step += 1
     return finite
 
@@ -261,6 +268,7 @@ def train_step(state: TrainState, batch: Mapping,
                vnl_indices: Optional[Dict[str, torch.Tensor]] = None
                ) -> Dict[str, torch.Tensor]:
     """One optimisation step; returns the losses with ``total``."""
-    losses, saved = grad_step(state, batch, vnl_indices)
-    apply_grads(state, losses["total"], saved)
+    with span("trainer.step"):
+        losses, saved = grad_step(state, batch, vnl_indices)
+        apply_grads(state, losses["total"], saved)
     return losses

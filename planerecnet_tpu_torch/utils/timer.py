@@ -1,23 +1,45 @@
-"""Nestable named-scope timer with stack semantics.
+"""The port's tracing: spans at its layers' boundaries, and the nestable
+scope timer of the JAX package.
 
-Counterpart of ``planerecnet_tpu/utils/timer.py``, with its API
-(``with timer.env("backbone"): ...``): only the innermost scope
+Spans. ``with timer.span("trainer.forward"): ...`` marks a layer's work;
+``timer.tracing(True)`` switches recording on (it is off by default) and
+``timer.collect()`` returns and clears the records. Off, ``span`` checks
+one module-level bool and returns a shared no-op context manager:
+nothing is recorded and no profiler range is opened. On, each span keeps
+one ``Span`` record in memory: its name, its parent's index in the
+collected list, its thread, and its start and end from
+``time.perf_counter_ns()``; a span with no parent is a root, and marks
+one unit of work (a training step, a served request). While a
+``torch.profiler`` profile is recording, each span is also a
+``record_function`` range, so that it appears in the trace as a
+``user_annotation`` on the kernels' clock and each device event and idle
+gap can be put down to a span (``benchmark/spans.py``). Recording adds
+no synchronisation and changes no number.
+
+Spans nest per thread. A thread with no open span (the autograd
+engine's, running a backward) nests under the innermost open span of the
+thread that holds the open root. That assumes one root open at a time in
+the process: where two threads each hold a root, such a thread nests
+under the later one's.
+
+The timer: counterpart of ``planerecnet_tpu/utils/timer.py``, with its
+API (``with timer.env("backbone"): ...``): only the innermost scope
 accumulates while nested, and the parent resumes on exit. A scope's
 ``sync`` payload is waited for before the clock is read:
 ``torch.cuda.synchronize`` when it holds a CUDA tensor, so that queued
-device work is counted.
-
-For kernel-level profiles use ``torch.profiler``; this is the light
-per-stage wall-clock breakdown of the eval loop.
+device work is counted. It keeps its own stack, apart from the spans'.
 """
 
 from __future__ import annotations
 
+import contextlib
+import threading
 import time
 from collections import defaultdict
-from typing import Optional
+from typing import List, NamedTuple, Optional
 
 import torch
+from torch.autograd import profiler as _profiler
 
 _total_times = defaultdict(float)
 _start_times = defaultdict(lambda: -1.0)
@@ -25,6 +47,99 @@ _disabled_names = set()
 _timer_stack = []
 _running_timer = None
 _disable_all = False
+
+_tracing = False
+_OFF = contextlib.nullcontext()
+_records: List["_Open"] = []
+_stacks = threading.local()
+_root_stack: Optional[list] = None  # the open spans of the root's thread
+
+
+class Span(NamedTuple):
+    """One recorded span; ``parent`` indexes the list ``collect`` gave."""
+    name: str
+    parent: Optional[int]
+    thread: int
+    start_ns: int
+    end_ns: int
+
+
+class _Open:
+    """A span being recorded."""
+    __slots__ = ("name", "parent", "thread", "start_ns", "end_ns", "_range")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        global _root_stack
+        stack = getattr(_stacks, "open", None)
+        if stack is None:
+            stack = _stacks.open = []
+        if stack:
+            parent = stack[-1]
+        else:       # one read: the root's thread may pop or close meanwhile
+            roots = _root_stack
+            held = roots[-1:] if roots is not None else []
+            parent = held[0] if held else None
+        self._range = None
+        if _profiler._is_profiler_enabled:
+            self._range = _profiler.record_function(self.name)
+            self._range.__enter__()
+        if parent is None:
+            _root_stack = stack
+        self.parent = parent
+        self.thread = threading.get_ident()
+        self.end_ns = -1
+        stack.append(self)
+        _records.append(self)
+        self.start_ns = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        global _root_stack
+        self.end_ns = time.perf_counter_ns()
+        if self._range is not None:
+            self._range.__exit__(*exc)
+        stack = _stacks.open
+        stack.pop()
+        if not stack and _root_stack is stack:
+            _root_stack = None
+        return False
+
+
+def span(name: str):
+    """A context manager marking ``name``'s work."""
+    if not _tracing:
+        return _OFF
+    return _Open(name)
+
+
+def tracing(on: bool) -> bool:
+    """Switch span recording on or off; returns whether it was on."""
+    global _tracing
+    was, _tracing = _tracing, bool(on)
+    return was
+
+
+def collect() -> List[Span]:
+    """The spans recorded since the last call, in the order they opened,
+    and clear them. Call it with no span open."""
+    records = _records[:]
+    del _records[:len(records)]
+    index = {id(r): i for i, r in enumerate(records)}
+    return [Span(r.name, None if r.parent is None
+                 else index.get(id(r.parent)), r.thread, r.start_ns,
+                 r.end_ns) for r in records]
+
+
+def self_ns(spans: List[Span]) -> List[int]:
+    """Each span's duration less its children's."""
+    out = [s.end_ns - s.start_ns for s in spans]
+    for s in spans:
+        if s.parent is not None:
+            out[s.parent] -= s.end_ns - s.start_ns
+    return out
 
 
 def _now() -> float:
