@@ -84,7 +84,10 @@ result line.
    step's shapes (``spatial_window_cases``).
 5. inference main path: ``PlaneRecNetRunner(PlaneRecNet_50_config)`` with
    seeded, perturbed weights answers 3 requests of 8 distinct 480x640
-   frames; the im2col's launch count must rise by 13 per request.
+   frames; the im2col's launch count must rise by 13 per request. The
+   same requests again, replays of the CUDA graphs by now, under
+   ``torch.profiler``: 13 im2col kernels a request in the device trace,
+   and as many counted.
 6. inference CPU against GPU: the same weights on three smaller frames
    through the CPU (plain) path and the card (kernel) path. A mask pixel
    may differ only where the CPU's soft mask lies within the margin of
@@ -1206,6 +1209,7 @@ def phase_main(dcn, cfg, card):
     if launches != DCN_LAYERS_PRN50 * REQUESTS:
         raise AssertionError(f"{launches} kernel launches for {REQUESTS} "
                              f"requests, expected {DCN_LAYERS_PRN50} each")
+    launches = traced_im2col(dcn, runner, reqs)
     ms = float(np.median(times))
     log(f"[main] PRN-50 {BATCH}x{HEIGHT}x{WIDTH} f32: per request "
         f"{[round(t, 3) for t in times]} ms; median {ms:.3f} ms/request, "
@@ -1213,9 +1217,33 @@ def phase_main(dcn, cfg, card):
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
         f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}, "
         f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}; {card}")
-    log(f"[main] {launches} kernel launches over {REQUESTS} requests; "
-        f"valid detections {int(out['pred_valid'].sum())}")
+    log(f"[main] {launches} im2col kernels in a device trace of the "
+        f"{REQUESTS} requests replayed; valid detections "
+        f"{int(out['pred_valid'].sum())}")
     return runner, launches, times
+
+
+def traced_im2col(dcn, runner, reqs):
+    """The im2col kernels the card ran for ``reqs`` (CUDA-graph replays by
+    now), counted in a ``torch.profiler`` trace; raises unless they are
+    ``DCN_LAYERS_PRN50`` a request and the launch counter, zeroed first,
+    counts as many."""
+    from planerecnet_tpu_torch.tools import parse_trace
+    work = tempfile.mkdtemp(prefix="prn_main_")
+    try:
+        dcn.deform_im2col.launches = 0
+        summary = parse_trace.record(
+            lambda: [runner.infer(batch) for batch in reqs], 1, work, "main",
+            "cuda")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    traced = parse_trace.calls_of(summary, "dcn_im2col_kernel")
+    counted = dcn.deform_im2col.launches
+    if not traced == counted == DCN_LAYERS_PRN50 * len(reqs):
+        raise AssertionError(f"im2col: {traced} kernels in the trace of "
+                             f"{len(reqs)} requests, {counted} counted; "
+                             f"expected {DCN_LAYERS_PRN50} each")
+    return int(traced)
 
 
 # Raw predictions, CPU against card: f32 on both, summed in other orders

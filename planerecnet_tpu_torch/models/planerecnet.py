@@ -20,6 +20,16 @@ and the dict returned is the whole images' on every rank.
 ``cfg.remat_backbone`` decides, call by call, whether the backbone's
 blocks are recomputed in the backward (``resolve_remat``): the JAX
 package's rule with the card's own fitting point, measured on an H100.
+
+An inference call on a card (autograd off, eval mode, no ``spatial``)
+replays a CUDA graph of the forward, one per input shape
+(``utils/graphs.py``): the first call at a shape runs eagerly, the second
+captures. Work on a call's outputs follows it (``model.graphs.follow``,
+the runner's post-processing).
+``train()``, ``.to()`` and ``load_state_dict(assign=True)`` drop the
+graphs; an in-place ``load_state_dict`` needs nothing. A parameter swapped
+by other means (``p.data = ...``, a submodule's own ``.to``) is not seen:
+call ``model.graphs.clear()``.
 """
 
 from __future__ import annotations
@@ -36,6 +46,7 @@ from planerecnet_tpu_torch.models.depth_decoder import DepthDecoderFPN
 from planerecnet_tpu_torch.models.fpn import build_fpn
 from planerecnet_tpu_torch.models.heads import SOLOv2InsHead, SOLOv2MaskHead
 from planerecnet_tpu_torch.ops.image import resize_bilinear
+from planerecnet_tpu_torch.utils import graphs
 
 # The instance branch always has four levels (p2 halved, p3, p4, p5).
 NUM_INSTANCE_LEVELS = 4
@@ -92,6 +103,7 @@ class PlaneRecNet(nn.Module):
         self.depth_decoder = DepthDecoderFPN(
             [chans[i] for i in cfg.depth.selected_layers], num_cells,
             num_features=cfg.depth.num_features)
+        self.graphs = graphs.Graphs()
         self.init_weights()
 
     @torch.no_grad()
@@ -126,13 +138,46 @@ class PlaneRecNet(nn.Module):
         depth decoder alike, keeps using and keeping its running
         statistics."""
         super().train(mode)
+        if mode:
+            self.graphs.clear()
         if mode and self.cfg.freeze_bn:
             for m in self.modules():
                 if isinstance(m, nn.BatchNorm2d):
                     m.eval()
         return self
 
-    def forward(self, x: torch.Tensor, spatial=None) -> Dict:
+    def _apply(self, fn, *args, **kwargs):
+        self.graphs.clear()
+        return super()._apply(fn, *args, **kwargs)
+
+    def load_state_dict(self, state_dict, strict: bool = True,
+                        assign: bool = False):
+        if assign:
+            self.graphs.clear()
+        return super().load_state_dict(state_dict, strict=strict,
+                                       assign=assign)
+
+    def graphed(self, x: torch.Tensor, spatial=None) -> bool:
+        """Whether a call goes through the CUDA graphs: an inference call
+        (autograd off, eval mode) of the whole images (no ``spatial``) on
+        a card, that ``graphs.usable`` allows."""
+        return (spatial is None and x.is_cuda and not self.training
+                and not torch.is_grad_enabled() and graphs.usable(self))
+
+    def forward(self, x: torch.Tensor, spatial=None,
+                borrow: bool = False) -> Dict:
+        """The raw outputs. ``borrow``: a replay may return the graph's own
+        outputs, which the next call at this shape overwrites, unless a
+        forward hook on the model takes them (the runner, which reads
+        them through ``graphs.follow``)."""
+        if not self.graphed(x, spatial):
+            self.graphs.last = None
+            return self._forward(x, spatial)
+        return self.graphs.run(graphs.numerics(), self._forward, (x,),
+                               PlaneRecNet.forward,
+                               copy=not borrow or bool(self._forward_hooks))
+
+    def _forward(self, x: torch.Tensor, spatial=None) -> Dict:
         cfg, rows = self.cfg, spatial
         remat = resolve_remat(
             cfg.remat_backbone, torch.is_grad_enabled(),
@@ -172,3 +217,10 @@ class PlaneRecNet(nn.Module):
             "mask_pred": nhwc(mask_pred),
             "depth_pred": nhwc(depth_pred),
         }
+
+
+# How often inference calls ran eagerly (the first at a shape), captured
+# their graph (the second) and replayed it (every later one).
+PlaneRecNet.forward.eager = 0
+PlaneRecNet.forward.captures = 0
+PlaneRecNet.forward.replays = 0

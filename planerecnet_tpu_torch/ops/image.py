@@ -83,6 +83,13 @@ def _nearest_sources(in_size: int, out_size: int) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=256)
+def _nearest_index(in_size: int, out_size: int, device) -> torch.Tensor:
+    """``_nearest_sources`` on ``device``, cached per device as
+    ``_resize_taps`` is: callers must not write into it."""
+    return torch.from_numpy(_nearest_sources(in_size, out_size)).to(device)
+
+
+@functools.lru_cache(maxsize=256)
 def _window_taps(in_size: int, out_size: int, n: int, index: int,
                  nearest: bool, device):
     """Rank ``index`` of ``n`` row-sharded ranks' part of a resize of the
@@ -166,10 +173,9 @@ def resize_nearest(x: torch.Tensor, size: Tuple[int, int],
     exactly as the JAX package does; ``rows`` as ``resize_bilinear``."""
     w = x.shape[-1]
     oh, ow = size
-    cols = torch.from_numpy(_nearest_sources(w, ow)).to(x.device)
+    cols = _nearest_index(w, ow, x.device)
     if rows is None:
-        x = x.index_select(-2, torch.from_numpy(
-            _nearest_sources(x.shape[-2], oh)).to(x.device))
+        x = x.index_select(-2, _nearest_index(x.shape[-2], oh, x.device))
     else:
         x = _resize_rows(x, oh, rows, True)
     return x.index_select(-1, cols)
@@ -187,6 +193,13 @@ def _reflect_sources(n: int, pad: int) -> np.ndarray:
         return np.zeros(1 + 2 * pad, np.int64)
     o = np.abs(np.arange(-pad, n + pad))
     return np.where(o > n - 1, 2 * (n - 1) - o, o)
+
+
+@functools.lru_cache(maxsize=None)
+def _reflect_index(n: int, pad: int, device) -> torch.Tensor:
+    """``_reflect_sources`` on ``device``, cached per device: callers must
+    not write into it."""
+    return torch.from_numpy(_reflect_sources(n, pad)).to(device)
 
 
 @functools.lru_cache(maxsize=None)
@@ -258,8 +271,7 @@ class _ReflectPad(torch.autograd.Function):
         if min(h, w) > 1:
             return F.pad(x, (pad,) * 4, mode="reflect")
         for dim, n in ((-2, h), (-1, w)):
-            x = x.index_select(dim, torch.from_numpy(
-                _reflect_sources(n, pad)).to(x.device))
+            x = x.index_select(dim, _reflect_index(n, pad, x.device))
         return x.contiguous(memory_format=ctx.layout)
 
     @staticmethod
@@ -334,10 +346,17 @@ def calc_size_preserve_ar(img_w: int, img_h: int, max_size: int
     return int(w), int(h)
 
 
+@functools.lru_cache(maxsize=None)
+def _mean_std(device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``MEANS`` and ``STD`` as f32 tensors on ``device``, copied there
+    once; callers must not write into them."""
+    return (torch.tensor(MEANS, dtype=torch.float32, device=device),
+            torch.tensor(STD, dtype=torch.float32, device=device))
+
+
 def fast_base_transform(images_bgr: torch.Tensor) -> torch.Tensor:
     """(B, H, W, 3) BGR pixels in [0, 255] -> (B, H, W, 3) normalised RGB."""
-    mean = torch.tensor(MEANS, dtype=torch.float32, device=images_bgr.device)
-    std = torch.tensor(STD, dtype=torch.float32, device=images_bgr.device)
+    mean, std = _mean_std(images_bgr.device)
     x = (images_bgr.float() - mean) / std
     return x.flip(-1)
 

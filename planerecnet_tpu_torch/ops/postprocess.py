@@ -13,6 +13,7 @@ sort.
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Sequence, Tuple
 
 import numpy as np
@@ -28,6 +29,15 @@ def flat_strides(num_grids: Sequence[int],
     """Per-grid-cell stride over all levels, row-major per level."""
     return np.concatenate([np.full(s * s, stride, dtype=np.float32)
                            for s, stride in zip(num_grids, strides)])
+
+
+@functools.lru_cache(maxsize=None)
+def stride_table(num_grids: Tuple[int, ...], strides: Tuple[int, ...],
+                 device: torch.device) -> torch.Tensor:
+    """``flat_strides`` on ``device``, copied there once per grids and
+    device (a CUDA graph cannot copy from pageable host memory); callers
+    must not write into it."""
+    return torch.from_numpy(flat_strides(num_grids, strides)).to(device)
 
 
 def _masked_topk_desc(scores: torch.Tensor, valid: torch.Tensor, k: int):
@@ -70,8 +80,8 @@ def select_masks(cate_scores_flat: torch.Tensor, kernels_flat: torch.Tensor,
     labels = class_ids[idx]
     cells = cell_ids[idx]
     nl = num_levels if num_levels is not None else len(sv.num_grids)
-    strides = torch.from_numpy(flat_strides(
-        sv.num_grids[:nl], sv.fpn_instance_strides[:nl])).to(dev)[cells]
+    strides = stride_table(tuple(sv.num_grids[:nl]),
+                           tuple(sv.fpn_instance_strides[:nl]), dev)[cells]
 
     # --- dynamic-conv mask assembly: one (cap, K) @ (K, Hm*Wm) matmul ---
     kernels = kernels_flat[cells].float()

@@ -4,6 +4,11 @@ Counterpart of ``planerecnet_tpu/runner.py``. Raw (B, H, W, 3) BGR pixels go
 in; masks, boxes, classes, scores and depth come out with the keys, shapes
 and meaning of the JAX package's ``postprocess_single`` plus a batch
 dimension. Runs on ``cuda`` unless the caller passes ``device="cpu"``.
+
+On a card the forward and the post-processing replay CUDA graphs, one set
+per input shape and output size (``utils/graphs.py``): the first request
+at a shape runs eagerly, the second captures, every later one replays.
+The post-processing graph reads the forward graph's own outputs.
 """
 
 from __future__ import annotations
@@ -102,18 +107,28 @@ class PlaneRecNetRunner:
             with span("runner.upload"):
                 x = self._batch(images_bgr)
             with span("runner.forward"):
-                preds = self.model(fast_base_transform(x))
+                preds = self.model(fast_base_transform(x), borrow=True)
             with span("runner.postprocess"):
-                return postprocess_batch(preds, self.cfg,
-                                         ori_size or x.shape[1:3])
+                return self.postprocess(preds, ori_size or x.shape[1:3])
+
+    def postprocess(self, preds: Dict, ori_size: Tuple[int, int]
+                    ) -> Dict[str, torch.Tensor]:
+        """``postprocess_batch`` of ``preds``, the raw outputs of the
+        model's latest call: through the CUDA graphs of that call's shape
+        where it went through its own (``Graphs.follow``), else eager."""
+        cfg, size = self.cfg, tuple(ori_size)
+        return self.model.graphs.follow(
+            (size, cfg.num_classes, cfg.solov2),
+            lambda p: postprocess_batch(p, cfg, size), preds,
+            PlaneRecNetRunner.postprocess)
 
     @torch.no_grad()
     def infer_normalized(self, images, ori_size: Optional[Tuple[int, int]]
                          = None) -> Dict[str, torch.Tensor]:
         """Forward + post-processing on already-normalised images."""
         x = self._batch(images)
-        return postprocess_batch(self.model(x), self.cfg,
-                                 ori_size or x.shape[1:3])
+        return self.postprocess(self.model(x, borrow=True),
+                                ori_size or x.shape[1:3])
 
     @torch.no_grad()
     def infer_normalized_with_gt_iou(
@@ -127,8 +142,8 @@ class PlaneRecNetRunner:
         binary, so the f32 products sum integers below 2^24, and the
         division is the host formula's (``evaluation.mask_iou``)."""
         x = self._batch(images)
-        out = postprocess_batch(self.model(x), self.cfg,
-                                ori_size or x.shape[1:3])
+        out = self.postprocess(self.model(x, borrow=True),
+                               ori_size or x.shape[1:3])
         b = x.shape[0]
         gm = torch.as_tensor(np.asarray(gt_masks, np.float32)
                              if not isinstance(gt_masks, torch.Tensor)
@@ -149,9 +164,18 @@ class PlaneRecNetRunner:
         return self.model(self._batch(images_normalized))
 
     def warmup(self, shape: Optional[Tuple[int, int]] = None):
-        """One request of a zero frame at ``shape`` (default: ``max_size``
-        square), waited for."""
+        """Two requests of a zero frame at ``shape`` (default: ``max_size``
+        square), waited for: the first runs eagerly, the second captures
+        the graphs that later requests at that shape replay."""
         h, w = shape or (self.cfg.max_size, self.cfg.max_size)
-        self.infer(np.zeros((1, h, w, 3), np.float32))
+        for _ in range(2):
+            self.infer(np.zeros((1, h, w, 3), np.float32))
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+
+# How often the post-processing ran eagerly (the first request at a shape
+# and output size), captured its graph (the second) and replayed it.
+PlaneRecNetRunner.postprocess.eager = 0
+PlaneRecNetRunner.postprocess.captures = 0
+PlaneRecNetRunner.postprocess.replays = 0

@@ -12,7 +12,12 @@ forward (backbone, FPN, heads, depth decoder), ``postprocess_batch`` of
 that forward's predictions, and the whole ``PlaneRecNetRunner.infer``.
 On the card each stage is the mean of ``--iters`` calls, after
 ``WARMUP``, between two CUDA events (the device's time for the queued
-work); on the CPU (``--device cpu``) the host clock's. The weights are
+work); on the CPU (``--device cpu``) the host clock's. On a card the
+``forward`` and ``infer`` stages replay CUDA graphs after their warm-up
+(``utils/graphs.py``), while the backbone stages, which call submodules,
+and ``postprocess_batch`` run eagerly: the stages' times then do not add
+up, an eager stage carrying the host's launches that a replay leaves
+out. The weights are
 the model's seeded initial ones (seed 0: the DCN offsets are zero and
 sample the integer grid), unless a caller of ``main`` passes
 ``set_weights``, which is applied to the model before anything runs.
