@@ -150,6 +150,11 @@ class BackboneConfig(_FrozenBase):
     path: str = "path/to/pretrained/weights"
     transform: TransformConfig = TransformConfig()
     selected_layers: Tuple[int, ...] = ()
+    # The stem and the first ``frozen_stages`` ResNet stages take no
+    # gradient and run without an autograd record (mmdet's
+    # ``frozen_stages``: 1 freezes the stem and the 256-channel stage); 0
+    # freezes nothing.
+    frozen_stages: int = 0
 
 
 resnet101_backbone = BackboneConfig(name="ResNet101",
@@ -172,6 +177,10 @@ class FPNConfig(_FrozenBase):
     interpolation_mode: str = "bilinear"
     high_level_mode: Optional[str] = None  # 'original' | None
     relu_pred_layers: bool = True
+    # False: PlaneRecNet's fine-to-coarse running sum; True: the classic
+    # top-down pathway (each coarser level resized up and added to the
+    # next finer lateral), as mmdetection's FPN.
+    top_down: bool = False
 
 
 fpn_base = FPNConfig()
@@ -212,6 +221,10 @@ class SOLOv2Config(_FrozenBase):
     # Fixed candidate capacity of the post-processing (>= nms_pre); more
     # candidates than this sets ``candidates_clipped``.
     max_candidates: int = 512
+    # Instance levels: p2 halved, p3, p4, p5 and, with 5, p6 resized to
+    # p5's size (SOLOv2's ``split_feats``). Each needs its grid, stride and
+    # scale range above.
+    num_instance_levels: int = 4
 
 
 solov2_base = SOLOv2Config()
@@ -251,6 +264,14 @@ class PlaneRecNetConfig(_FrozenBase):
     # iteration on.
     delayed_settings: Tuple = ()
 
+    # The optimizer: "adam" (0.9, 0.999, eps 1e-8, no weight decay) or
+    # "sgd" with ``momentum`` and ``weight_decay``; with ``clip_grad_norm``
+    # the gradients' global L2 norm is clipped to it before the update.
+    optimizer: str = "adam"
+    momentum: float = 0.9
+    weight_decay: float = 0.0
+    clip_grad_norm: Optional[float] = None
+
     # Loss weights and switches.
     dice_weight: float = 3.0
     focal_weight: float = 1.0
@@ -289,9 +310,17 @@ class PlaneRecNetConfig(_FrozenBase):
     fpn: FPNConfig = fpn_base.copy(dict(start_level=0,
                                         high_level_mode="original"))
     depth: DepthConfig = DepthConfig()
+    # False builds no depth decoder: the forward returns no ``depth_pred``,
+    # the loss has no depth term and the batch needs no ``depth``.
+    use_depth: bool = True
     solov2: SOLOv2Config = solov2_base
     # "float32", "bfloat16", or "auto" (= float32).
     compute_dtype: str = "auto"
+    # True lets cuDNN's convolutions round their inputs to TF32 on the
+    # card (PyTorch's default); False holds the forward, and the training
+    # step's backward, to full f32 convolutions and matrix products
+    # (``models/planerecnet.py::tf32_switches``).
+    allow_tf32: bool = True
     # The dice/lava loss: "auto" and "on" through ``ops.dice_lava``'s
     # kernels (their plain version on the CPU), "off" through the plain
     # PyTorch composition on either device.
@@ -340,11 +369,61 @@ PlaneRecNet_tiny_config = PlaneRecNet_50_config.copy(dict(
 ))
 
 
+# SOLOv2-R101-DCN (WXinlong/SOLO, configs/solov2/
+# solov2_r101_dcn_fpn_8gpu_3x.py): PlaneRecNet's instance branch without
+# its depth decoder, in the heaviest published form. ResNet-101 with DCNv2
+# in every block of stages 3-5, the stem and stage 2 frozen, BatchNorm on
+# its running statistics; an FPN of 256 channels, P2-P6; five instance
+# levels, whose two towers of 4 DCNv2 convs of 512 channels each
+# (GroupNorm 32) predict 80 classes and 256 dynamic kernels; dice (3) and
+# focal (1) losses; SGD with momentum 0.9, weight decay 1e-4, gradients
+# clipped at 35. The learning rate is the published 0.01 at 16 images
+# scaled to 8 cards x 8 images (0.04), its steps at epochs 27 and 33 of
+# 36 over COCO train2017's 118,287 images (1,849 updates an epoch).
+SOLOv2_R101_DCN_config = PlaneRecNet_base_config.copy(dict(
+    name="SOLOv2_R101_DCN",
+    num_classes=80,   # labels 0-79; the background is label 80, no logit
+    backbone=resnet101_backbone.copy(dict(
+        name="ResNet101_DCNv2", dcn_layers=(0, 4, 23, 3), dcn_interval=1,
+        selected_layers=tuple(range(0, 4)), frozen_stages=1)),
+    fpn=fpn_base.copy(dict(start_level=0, high_level_mode="original",
+                           interpolation_mode="nearest",
+                           relu_pred_layers=False, top_down=True)),
+    solov2=solov2_base.copy(dict(use_dcn_in_instance=True,
+                                 num_instance_levels=5)),
+    use_depth=False,
+    freeze_bn=True,
+    dice_weight=3.0,
+    focal_weight=1.0,
+    optimizer="sgd",
+    momentum=0.9,
+    weight_decay=1e-4,
+    clip_grad_norm=35.0,
+    lr=0.04,
+    lr_warmup_init=0.04 * 0.01,
+    lr_warmup_until=500,
+    lr_steps=(27 * 1849, 33 * 1849),
+    max_iter=36 * 1849,
+    # Up to 20 instances an image (the benchmark's traffic), and room for
+    # every one of their positives: at most 9 cells an instance a level.
+    max_instances=20,
+    max_positives=180,
+    max_size=1344,
+    remat_backbone=False,
+    # Full f32, as the published recipe trained (V100s). With TF32
+    # convolutions the first step's gradient of a tower's offset or
+    # modulator conv came up to 13% of its norm away from a full-f32
+    # reference on an H100; in full f32, at most 0.2%.
+    allow_tf32=False,
+))
+
+
 _CONFIGS = {
     "PlaneRecNet_base_config": PlaneRecNet_base_config,
     "PlaneRecNet_101_config": PlaneRecNet_101_config,
     "PlaneRecNet_50_config": PlaneRecNet_50_config,
     "PlaneRecNet_tiny_config": PlaneRecNet_tiny_config,
+    "SOLOv2_R101_DCN_config": SOLOv2_R101_DCN_config,
 }
 
 

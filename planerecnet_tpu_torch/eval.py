@@ -278,7 +278,7 @@ def evaluate(net: PlaneRecNetRunner, dataset, during_training=False,
             it += 1
             valid = batched["pred_valid"][j]
             detections += int(valid.sum())
-            if dumper is None:
+            if dumper is None and "pred_depth" in batched:
                 depth_err = compute_depth_metrics(
                     batched["pred_depth"][j], gt_depth[..., 0], net.cfg,
                     median_scaling=True)
@@ -327,7 +327,8 @@ def evaluate(net: PlaneRecNetRunner, dataset, during_training=False,
     if dumper is not None:
         return None, None
     all_maps = calc_map(ap_data)
-    infos = np.asarray(infos, dtype=np.double)
+    infos = np.asarray(infos, dtype=np.double).reshape(
+        -1, len(DEPTH_METRICS))     # no rows for a model without depth
     means = infos.sum(axis=0) / max(infos.shape[0], 1)
     print("\nDepth Metrics:")
     print(", ".join(f"{k}: {v:.5f}" for k, v in zip(DEPTH_METRICS, means)))

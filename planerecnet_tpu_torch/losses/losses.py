@@ -4,7 +4,8 @@ Counterpart of ``planerecnet_tpu/losses/losses.py``: fixed-capacity GT
 preparation (every GT instance claims at most the 3x3 window of grid cells
 around its mass centre on each level, compacted to ``max_positives`` slots),
 then dice (instance masks), sigmoid focal (categories), RMSE of log depth,
-the VNL plane loss and the lava loss, weighted and returned as a dict.
+the VNL plane loss and the lava loss, weighted and returned as a dict
+(SOLOv2, ``use_depth`` False: dice and focal alone).
 
 The dice and lava terms go through ``ops/dice_lava.py``'s fused reductions
 (the kernels on the card, their plain versions on the CPU) unless
@@ -34,6 +35,7 @@ from planerecnet_tpu_torch.ops.dice_lava import (fused_dice_lava,
                                                 fused_dice_lava_plain)
 from planerecnet_tpu_torch.ops.image import (_resize_weights, reflect_pad,
                                              resize_bilinear)
+from planerecnet_tpu_torch.utils.timer import span
 
 
 def dice_loss(input_sig: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
@@ -166,14 +168,17 @@ def _prepare_level(boxes, labels, gt_valid, mask_sums, cx, cy, img_hw,
     slot_valid = ok.reshape(bsz, n * 9)
     slot_inst = torch.arange(n, device=boxes.device).repeat_interleave(9)
 
-    # A single foreground class: the order of duplicate writes is moot.
+    # A cell that several instances claim takes the label of the last of
+    # them, as SOLOv2's loop over the instances writes it: the largest
+    # instance index a cell gets, then that instance's label.
     dropped = torch.where(slot_valid, cells, g * g)
-    cate_label = torch.full((bsz, g * g + 1), num_classes, dtype=torch.long,
-                            device=boxes.device)
-    cate_label.scatter_(1, dropped, labels.long().repeat_interleave(9, dim=1))
-    ins_ind = torch.zeros((bsz, g * g + 1), dtype=torch.bool,
-                          device=boxes.device)
-    ins_ind.scatter_(1, dropped, True)
+    owner = torch.full((bsz, g * g + 1), -1, dtype=torch.long,
+                       device=boxes.device)
+    owner.scatter_reduce_(1, dropped, slot_inst.expand(bsz, -1), "amax")
+    cate_label = torch.where(
+        owner >= 0, torch.gather(labels.long(), 1, owner.clamp(min=0)),
+        num_classes)
+    ins_ind = owner >= 0
 
     # Compact the (N*9) slot table to max_positives slots, keeping instance
     # order (the scores are distinct, so the selection is stable).
@@ -249,6 +254,9 @@ def compute_losses(cfg: PlaneRecNetConfig, preds: Dict, batch: Dict,
     """Weighted loss dict: ins, cat, dpt [, pln] [, lav].
 
     ``preds`` is the model's raw-pred dict, ``batch`` the dense GT batch.
+    With ``cfg.use_depth`` False (SOLOv2) the losses are ins and cat
+    alone, and the batch needs no ``depth``; the lava and plane losses
+    need depth.
     The VNL loss samples its triplets with ``generator``, unless
     ``vnl_indices`` (as ``losses.vnl.sample_vnl_indices`` returns them, for
     the first ``vnl_max_planes`` valid planes) are given.
@@ -267,18 +275,22 @@ def compute_losses(cfg: PlaneRecNetConfig, preds: Dict, batch: Dict,
     cate_preds: List[torch.Tensor] = preds["cate_preds"]
     kernel_preds: List[torch.Tensor] = preds["kernel_preds"]
     mask_pred = preds["mask_pred"].float()                  # (B, Hm, Wm, K)
-    depth_pred = preds["depth_pred"].float()                # (B, H/2, W/2, 1)
     gt_masks = batch["masks"]
     gt_valid = batch["gt_valid"].bool()
-    gt_depths = batch["depth"].float()
+    if cfg.use_depth:
+        depth_pred = preds["depth_pred"].float()            # (B, H/2, W/2, 1)
+        gt_depths = batch["depth"].float()
+    elif cfg.use_lava_loss or cfg.use_plane_loss:
+        raise ValueError("the lava and plane losses need use_depth")
 
     if cfg.fused_loss_kernel not in ("auto", "on", "off"):
         raise ValueError(f"fused_loss_kernel {cfg.fused_loss_kernel!r}")
     num_levels = len(cate_preds)
     b, hm, wm, n_k = mask_pred.shape
     losses: Dict[str, torch.Tensor] = {}
-    gt = prepare_ground_truth(cfg, batch["boxes"], batch["classes"], gt_valid,
-                              gt_masks, num_levels)
+    with span("loss.targets"):
+        gt = prepare_ground_truth(cfg, batch["boxes"], batch["classes"],
+                                  gt_valid, gt_masks, num_levels)
     targets_flat = gt["masks4"].reshape(b, -1, hm * wm)     # (B, N, Hm*Wm)
     n_inst = targets_flat.shape[1]
     target_areas = targets_flat.sum(2)                      # sum t^2 = sum t
@@ -343,6 +355,8 @@ def compute_losses(cfg: PlaneRecNetConfig, preds: Dict, batch: Dict,
                                gamma=cfg.focal_gamma)
     losses["cat"] = cfg.focal_weight * focal.sum() / (num_ins + 1.0)
 
+    if not cfg.use_depth:
+        return losses
     h, w = gt_depths.shape[1:3]
     depth_up = resize_bilinear(depth_pred.permute(0, 3, 1, 2), (h, w)
                                ).permute(0, 2, 3, 1)        # (B, H, W, 1)

@@ -21,6 +21,12 @@ forward left them (``_running_stats_kept``), so that they are updated
 once a step, from the forward, as flax's ``batch_stats`` are. The stem
 and the extra stages are not recomputed, as in JAX.
 
+``frozen_stages`` (``BackboneConfig``) freezes the stem and the first
+that many stages: their parameters take no gradient, their BatchNorms
+stay in eval mode, and they run under ``torch.no_grad()``, so that no
+autograd record is kept and the backward stops at the first trained
+stage's input.
+
 Where ``selected_layers`` reaches past the ResNet's stages, stride-2
 bottleneck stages of 256 planes (1024 channels) are appended, as the JAX
 package's ``extra{e}_0`` blocks (``backbone.layers.{4 + e}.0`` here, as
@@ -222,8 +228,10 @@ class ResNetBackbone(nn.Module):
                  dcn_layers: Tuple[int, ...] = (0, 0, 0, 0),
                  dcn_interval: int = 1, atrous_layers: Tuple[int, ...] = (),
                  extra_layers: int = 0,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None,
+                 frozen_stages: int = 0):
         super().__init__()
+        self.frozen_stages = frozen_stages
         self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
         self.bn1 = BatchNorm2d(64)
         self.relu = nn.ReLU()
@@ -251,6 +259,21 @@ class ResNetBackbone(nn.Module):
             self.layers.append(nn.Sequential(Bottleneck(
                 inplanes, 256, stride=2, has_downsample=True, dtype=dtype)))
             inplanes = 256 * Bottleneck.expansion
+        for m in self.frozen():
+            m.requires_grad_(False)
+
+    def frozen(self) -> Tuple[nn.Module, ...]:
+        """The stem's modules and the frozen stages."""
+        if not self.frozen_stages:
+            return ()
+        return (self.conv1, self.bn1,
+                *self.layers[:self.frozen_stages])
+
+    def train(self, mode: bool = True) -> "ResNetBackbone":
+        super().train(mode)
+        for m in self.frozen():
+            m.eval()
+        return self
 
     @property
     def channels(self) -> Tuple[int, ...]:
@@ -259,14 +282,19 @@ class ResNetBackbone(nn.Module):
 
     def forward(self, x: torch.Tensor, rows=None, remat: bool = False
                 ) -> Tuple[torch.Tensor, ...]:
-        x = self.relu(batch_norm(self.bn1, conv2d(self.conv1, x, rows), rows))
-        x = max_pool2d(self.maxpool, x, rows)
-        remat = remat and torch.is_grad_enabled()
+        frozen = self.frozen_stages
+        with torch.set_grad_enabled(torch.is_grad_enabled() and not frozen):
+            x = self.relu(batch_norm(self.bn1, conv2d(self.conv1, x, rows),
+                                     rows))
+            x = max_pool2d(self.maxpool, x, rows)
         outs = []
         for s, stage in enumerate(self.layers):
-            for block in stage:
-                x = (_remat(block, x, rows) if remat and s < self.base_stages
-                     else block(x, rows))
+            with torch.set_grad_enabled(torch.is_grad_enabled()
+                                        and s >= frozen):
+                rm = remat and torch.is_grad_enabled()
+                for block in stage:
+                    x = (_remat(block, x, rows)
+                         if rm and s < self.base_stages else block(x, rows))
             outs.append(x)
         return tuple(outs)
 
@@ -281,4 +309,4 @@ def construct_backbone(cfg: BackboneConfig,
                           atrous_layers=tuple(cfg.atrous_layers),
                           extra_layers=max(0, max(cfg.selected_layers) + 1
                                            - len(cfg.layers)),
-                          dtype=dtype)
+                          dtype=dtype, frozen_stages=cfg.frozen_stages)

@@ -3,6 +3,8 @@
 Counterpart of ``planerecnet_tpu/models/fpn.py``: inputs arrive high-res to
 low-res (C2..C5) and a running sum is resized DOWN to each next level before
 being added to that level's lateral, unlike a classic top-down FPN.
+``top_down=True`` is the classic one (mmdetection's, SOLOv2's): each
+coarser sum resized UP to the next finer level and added to its lateral.
 Under a spatial context ``rows`` (``parallel/halo.py::Rows``) the levels
 are in the layout its rule gives them, and the resizes' sizes are global.
 """
@@ -24,8 +26,9 @@ class FPN(nn.Module):
     def __init__(self, in_channels: Sequence[int], num_features: int = 256,
                  start_level: int = 0, interpolation_mode: str = "bilinear",
                  high_level_mode: Optional[str] = None,
-                 relu_pred_layers: bool = True):
+                 relu_pred_layers: bool = True, top_down: bool = False):
         super().__init__()
+        self.top_down = top_down
         if high_level_mode not in (None, "original"):
             raise ValueError(f"high_level_mode {high_level_mode!r}: no preset "
                              "uses it and the port does not build it")
@@ -45,14 +48,16 @@ class FPN(nn.Module):
                   else resize_bilinear)
         laterals = []
         x = None
-        for conv, feat in zip(self.lateral_convs,
-                              inputs[self.start_level:]):
+        pairs = list(zip(self.lateral_convs, inputs[self.start_level:]))
+        for conv, feat in (reversed(pairs) if self.top_down else pairs):
             lat = conv(feat)
             size = (feat.shape[-2] if rows is None else rows.rows_of(feat),
                     feat.shape[-1])
             x = lat if x is None else lat + resize(x, size, rows).to(
                 lat.dtype)
             laterals.append(x)
+        if self.top_down:
+            laterals.reverse()
 
         outs = []
         for conv, lat in zip(self.fpn_convs, laterals):
@@ -72,4 +77,5 @@ def build_fpn(cfg: FPNConfig, in_channels: Sequence[int]) -> FPN:
                start_level=cfg.start_level or 0,
                interpolation_mode=cfg.interpolation_mode,
                high_level_mode=cfg.high_level_mode,
-               relu_pred_layers=cfg.relu_pred_layers)
+               relu_pred_layers=cfg.relu_pred_layers,
+               top_down=cfg.top_down)

@@ -20,6 +20,7 @@ from planerecnet_tpu_torch.config import SOLOv2Config
 from planerecnet_tpu_torch.models.backbone import DeformableConv2d
 from planerecnet_tpu_torch.models.layers import GroupNorm, conv2d, group_norm
 from planerecnet_tpu_torch.ops.image import point_sample_grid, resize_bilinear
+from planerecnet_tpu_torch.utils.timer import span
 
 
 def bias_init_with_prob(prior_prob: float) -> float:
@@ -81,12 +82,14 @@ class SOLOv2InsHead(nn.Module):
     def forward(self, features: Sequence[torch.Tensor]
                 ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
         cate_preds, kernel_preds = [], []
-        for idx, feat in enumerate(features):
-            s = self.num_grids[idx]
-            kernel_feat = resize_bilinear(_with_coords(feat), (s, s))
-            cate_feat = kernel_feat[:, :-2]
-            kernel_preds.append(self.kernel_pred(self.kernel_tower(kernel_feat)))
-            cate_preds.append(self.cate_pred(self.cate_tower(cate_feat)))
+        with span("heads.instance"):
+            for idx, feat in enumerate(features):
+                s = self.num_grids[idx]
+                kernel_feat = resize_bilinear(_with_coords(feat), (s, s))
+                cate_feat = kernel_feat[:, :-2]
+                kernel_preds.append(
+                    self.kernel_pred(self.kernel_tower(kernel_feat)))
+                cate_preds.append(self.cate_pred(self.cate_tower(cate_feat)))
         return cate_preds, kernel_preds
 
 

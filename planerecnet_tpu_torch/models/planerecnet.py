@@ -9,7 +9,10 @@ package's layouts:
   ``kernel_preds``: list per level, (B, S, S, num_kernels)
   ``mask_pred``:    (B, H/4, W/4, num_masks) mask features
   ``depth_pred``:   (B, H/2, W/2, 1) softplus depth
-The modules inside run NCHW.
+The modules inside run NCHW. With ``cfg.use_depth`` False (SOLOv2) no
+depth decoder is built and ``depth_pred`` is left out. With
+``cfg.allow_tf32`` False (SOLOv2) the forward's convolutions run in full
+f32 (``tf32_switches``; the training step holds its backward to it too).
 
 ``forward(x, spatial=rows)`` is the forward of one rank of the spatial
 mesh axis (``parallel/halo.py::Rows``): ``x`` holds this rank's rows of
@@ -34,6 +37,7 @@ call ``model.graphs.clear()``.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Optional
 
 import torch
@@ -47,9 +51,6 @@ from planerecnet_tpu_torch.models.fpn import build_fpn
 from planerecnet_tpu_torch.models.heads import SOLOv2InsHead, SOLOv2MaskHead
 from planerecnet_tpu_torch.ops.image import resize_bilinear
 from planerecnet_tpu_torch.utils import graphs
-
-# The instance branch always has four levels (p2 halved, p3, p4, p5).
-NUM_INSTANCE_LEVELS = 4
 
 # ``remat_backbone="auto"``'s fitting point: the input's bytes, B * H * W
 # times the compute dtype's itemsize, at which PRN-101's f32 training step
@@ -86,9 +87,34 @@ def compute_dtype(cfg: PlaneRecNetConfig) -> Optional[torch.dtype]:
     return torch.bfloat16 if cfg.compute_dtype == "bfloat16" else None
 
 
+@contextlib.contextmanager
+def tf32_switches(cfg: PlaneRecNetConfig):
+    """PyTorch's global TF32 switches as ``cfg.allow_tf32`` asks, for the
+    extent of the block: with False, cuDNN's convolutions and the matrix
+    products run in full f32 and the switches are put back after; with
+    True nothing is touched."""
+    if cfg.allow_tf32:
+        yield
+        return
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+
+
 class PlaneRecNet(nn.Module):
     def __init__(self, cfg: PlaneRecNetConfig):
         super().__init__()
+        # The instance branch's levels: p2 halved, p3, p4, p5 and, with
+        # ``solov2.num_instance_levels`` 5, p6 resized to p5's size.
+        if cfg.solov2.num_instance_levels not in (4, 5):
+            raise ValueError("solov2.num_instance_levels must be 4 or 5, "
+                             f"not {cfg.solov2.num_instance_levels}")
         self.cfg = cfg
         self.dtype = compute_dtype(cfg)
         self.backbone = construct_backbone(cfg.backbone, dtype=self.dtype)
@@ -98,11 +124,12 @@ class PlaneRecNet(nn.Module):
         self.inst_head = SOLOv2InsHead(cfg.solov2, cfg.num_classes,
                                        cfg.fpn.num_features, dtype=self.dtype)
         self.mask_head = SOLOv2MaskHead(cfg.solov2, cfg.fpn.num_features)
-        num_cells = sum(s * s for s in
-                        cfg.solov2.num_grids[:NUM_INSTANCE_LEVELS])
-        self.depth_decoder = DepthDecoderFPN(
-            [chans[i] for i in cfg.depth.selected_layers], num_cells,
-            num_features=cfg.depth.num_features)
+        if cfg.use_depth:
+            num_cells = sum(s * s for s in cfg.solov2.num_grids[
+                :cfg.solov2.num_instance_levels])
+            self.depth_decoder = DepthDecoderFPN(
+                [chans[i] for i in cfg.depth.selected_layers], num_cells,
+                num_features=cfg.depth.num_features)
         self.graphs = graphs.Graphs()
         self.init_weights()
 
@@ -185,8 +212,9 @@ class PlaneRecNet(nn.Module):
             * (2 if self.dtype == torch.bfloat16 else 4),
             torch.cuda.get_device_properties(x.device).total_memory
             if x.device.type == "cuda" else None)
-        with torch.autocast(x.device.type, dtype=torch.bfloat16,
-                            enabled=self.dtype == torch.bfloat16):
+        with tf32_switches(cfg), torch.autocast(
+                x.device.type, dtype=torch.bfloat16,
+                enabled=self.dtype == torch.bfloat16):
             feats = self.backbone(x.permute(0, 3, 1, 2), rows, remat=remat)
             features = self.fpn([feats[i] for i in cfg.fpn.selected_layers],
                                 rows)
@@ -195,28 +223,37 @@ class PlaneRecNet(nn.Module):
             h2 = p2.shape[-2] if rows is None else rows.rows_of(p2)
             ins_feats = [resize_bilinear(p2, (h2 // 2, p2.shape[-1] // 2),
                                          rows),
-                         *features[1:NUM_INSTANCE_LEVELS]]
+                         *features[1:4]]
+            if cfg.solov2.num_instance_levels == 5:
+                p5, p6 = features[3:5]
+                h5 = p5.shape[-2] if rows is None else rows.rows_of(p5)
+                ins_feats.append(resize_bilinear(p6, (h5, p5.shape[-1]),
+                                                 rows))
             if rows is not None:
                 ins_feats = [rows.whole(f) for f in ins_feats]
             cate_preds, kernel_preds = self.inst_head(ins_feats)
             n_mask = len(cfg.solov2.masks_in_features)
             mask_pred = self.mask_head(features[:n_mask], rows)
-            depth_pred = self.depth_decoder(
-                [feats[i] for i in cfg.depth.selected_layers], mask_pred,
-                kernel_preds, rows)
+            if cfg.use_depth:
+                depth_pred = self.depth_decoder(
+                    [feats[i] for i in cfg.depth.selected_layers], mask_pred,
+                    kernel_preds, rows)
             if rows is not None:
                 mask_pred = rows.whole(mask_pred)
-                depth_pred = rows.whole(depth_pred)
+                if cfg.use_depth:
+                    depth_pred = rows.whole(depth_pred)
 
         def nhwc(t):
             return t.permute(0, 2, 3, 1)
 
-        return {
+        out = {
             "cate_preds": [nhwc(t) for t in cate_preds],
             "kernel_preds": [nhwc(t) for t in kernel_preds],
             "mask_pred": nhwc(mask_pred),
-            "depth_pred": nhwc(depth_pred),
         }
+        if cfg.use_depth:
+            out["depth_pred"] = nhwc(depth_pred)
+        return out
 
 
 # How often inference calls ran eagerly (the first at a shape), captured

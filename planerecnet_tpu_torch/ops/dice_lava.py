@@ -321,6 +321,16 @@ def fused_dice_lava(kernels: torch.Tensor, mask_feat: torch.Tensor,
     gradient map at mask resolution. Returns (a, b, lava), each (B, P) f32,
     differentiable in ``kernels`` and ``mask_feat``. ``deterministic``
     sends CUDA tensors to the kernels' variants that sum in a fixed order.
+    More than the kernels' 128 slots run as chunks of slots, one call of
+    the kernels each (every sum is a slot's own; ``mask_feat``'s gradient
+    adds the chunks' in chunk order).
     """
-    return _FusedDiceLava.apply(kernels, mask_feat, onehot, targets, grad_low,
-                                deterministic)
+    p = kernels.shape[1]
+    if p <= _MAX_P:
+        return _FusedDiceLava.apply(kernels, mask_feat, onehot, targets,
+                                    grad_low, deterministic)
+    outs = [_FusedDiceLava.apply(kernels[:, i:i + _MAX_P], mask_feat,
+                                 onehot[:, i:i + _MAX_P], targets, grad_low,
+                                 deterministic)
+            for i in range(0, p, _MAX_P)]
+    return tuple(torch.cat(parts, 1) for parts in zip(*outs))

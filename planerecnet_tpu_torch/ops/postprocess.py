@@ -138,15 +138,16 @@ def postprocess_single(cate_scores_flat: torch.Tensor,
 
     cate_scores_flat (N_cells, num_classes) point-NMS'd scores; kernels_flat
     (N_cells, num_kernels); mask_feat (Hm, Wm, num_kernels); depth_pred
-    (Hd, Wd, 1). Returns pred_masks (top_k, H, W) bool, pred_scores
-    (top_k,), pred_classes (top_k,) int32, pred_boxes (top_k, 4) xyxy,
-    pred_valid (top_k,) bool, pred_depth (H, W), candidates_clipped ().
+    (Hd, Wd, 1), or None for a model without depth. Returns pred_masks
+    (top_k, H, W) bool, pred_scores (top_k,), pred_classes (top_k,) int32,
+    pred_boxes (top_k, 4) xyxy, pred_valid (top_k,) bool, pred_depth
+    (H, W) (not without depth), candidates_clipped ().
     """
     sv = cfg.solov2
     dev = cate_scores_flat.device
     hm, wm, _ = mask_feat.shape
-    depth = resize_bilinear(depth_pred.permute(2, 0, 1)[None].float(),
-                            ori_size)[0, 0]
+    depth = None if depth_pred is None else resize_bilinear(
+        depth_pred.permute(2, 0, 1)[None].float(), ori_size)[0, 0]
     scores, labels, _, seg_sig, valid, clipped = select_masks(
         cate_scores_flat, kernels_flat, mask_feat, cfg, num_levels)
 
@@ -168,7 +169,7 @@ def postprocess_single(cate_scores_flat: torch.Tensor,
     boxes = torch.stack([x_min, y_min, x_max, y_max], dim=-1)
     boxes = torch.where(valid[:, None], boxes, 0.0)
 
-    return {
+    out = {
         "pred_masks": masks,
         "pred_scores": torch.where(valid, scores, 0.0),
         "pred_classes": labels.to(torch.int32),
@@ -177,6 +178,9 @@ def postprocess_single(cate_scores_flat: torch.Tensor,
         "pred_depth": depth,
         "candidates_clipped": clipped,
     }
+    if depth is None:
+        del out["pred_depth"]
+    return out
 
 
 def flatten_level_preds(cate_preds: Sequence[torch.Tensor],
@@ -201,8 +205,10 @@ def postprocess_batch(preds: Dict, cfg: PlaneRecNetConfig,
     cates, kernels = flatten_level_preds(
         preds["cate_preds"], preds["kernel_preds"],
         cfg.num_classes, sv.num_kernels)
+    depth = preds.get("depth_pred")
     outs = [postprocess_single(cates[i], kernels[i], preds["mask_pred"][i],
-                               preds["depth_pred"][i], cfg, tuple(ori_size),
+                               None if depth is None else depth[i], cfg,
+                               tuple(ori_size),
                                num_levels=num_levels)
             for i in range(cates.shape[0])]
     return {key: torch.stack([o[key] for o in outs]) for key in outs[0]}

@@ -194,7 +194,8 @@ def make_step(args, state) -> Callable[[Dict], Dict[str, torch.Tensor]]:
             state.optimizer.zero_grad(set_to_none=True)
             preds = forward(batch)
             leaves = [*preds["cate_preds"], *preds["kernel_preds"],
-                      preds["mask_pred"], preds["depth_pred"]]
+                      preds["mask_pred"], *([preds["depth_pred"]]
+                                            if "depth_pred" in preds else [])]
             total = sum(t.float().square().sum() for t in leaves) * 1e-6
             out = {}
             if args.aux_losses:

@@ -15,7 +15,15 @@ Two things follow the JAX package exactly:
 
 The optimizer is Adam (0.9, 0.999, eps 1e-8) without weight decay (the JAX
 optimizer ignores ``cfg.decay``); ``per_module_lr`` gives the backbone 5x
-and the depth decoder 2x the learning rate.
+and the depth decoder 2x the learning rate. ``cfg.optimizer="sgd"``
+(SOLOv2) takes SGD with ``cfg.momentum`` and ``cfg.weight_decay``
+(PyTorch's, as mmdetection's: the decay added to the gradient, the
+first step's momentum buffer the gradient itself), and
+``cfg.clip_grad_norm`` scales the gradients to at most that global L2
+norm first; both on the device, with no read on the host. Frozen
+parameters (``BackboneConfig.frozen_stages``) have no gradient, and no
+update. ``cfg.allow_tf32`` False (SOLOv2) runs the forward, the loss and
+the backward with TF32 off (``models/planerecnet.py::tf32_switches``).
 
 ``create_train_state(deterministic=True)`` sends the step's DCN scatter
 and dice/lava kernels to their variants that sum in a fixed order, so
@@ -59,7 +67,8 @@ from torch import nn
 
 from planerecnet_tpu_torch.config import PlaneRecNetConfig
 from planerecnet_tpu_torch.losses import compute_losses
-from planerecnet_tpu_torch.models.planerecnet import PlaneRecNet
+from planerecnet_tpu_torch.models.planerecnet import (PlaneRecNet,
+                                                      tf32_switches)
 from planerecnet_tpu_torch.ops.image import fast_base_transform
 from planerecnet_tpu_torch.parallel.halo import Rows, gather_rows
 from planerecnet_tpu_torch.parallel.mesh import Mesh, replicated
@@ -86,25 +95,32 @@ def lr_schedule(cfg: PlaneRecNetConfig) -> Callable[[int], float]:
     return schedule
 
 
-def make_optimizer(model: nn.Module, per_module_lr: bool = False
-                   ) -> torch.optim.Adam:
-    """Adam over the model's parameters, one group per lr multiplier; each
-    group's ``lr_mult`` scales the scheduled learning rate."""
+def make_optimizer(model: nn.Module, per_module_lr: bool,
+                   cfg: PlaneRecNetConfig) -> torch.optim.Optimizer:
+    """``cfg.optimizer`` over the model's parameters, one group per lr
+    multiplier; each group's ``lr_mult`` scales the scheduled learning
+    rate."""
     groups: Dict[float, List[torch.Tensor]] = {}
     for name, p in model.named_parameters():
         mult = MODULE_LR.get(name.split(".", 1)[0], 1.0) if per_module_lr \
             else 1.0
         groups.setdefault(mult, []).append(p)
-    return torch.optim.Adam(
-        [{"params": ps, "lr_mult": m} for m, ps in groups.items()],
-        lr=0.0, betas=(0.9, 0.999), eps=1e-8, weight_decay=0.0)
+    params = [{"params": ps, "lr_mult": m} for m, ps in groups.items()]
+    kind = cfg.optimizer
+    if kind == "sgd":
+        return torch.optim.SGD(params, lr=0.0, momentum=cfg.momentum,
+                               weight_decay=cfg.weight_decay, foreach=True)
+    if kind != "adam":
+        raise ValueError(f"optimizer {kind!r}")
+    return torch.optim.Adam(params, lr=0.0, betas=(0.9, 0.999), eps=1e-8,
+                            weight_decay=0.0)
 
 
 @dataclass
 class TrainState:
     cfg: PlaneRecNetConfig
     model: PlaneRecNet
-    optimizer: torch.optim.Adam
+    optimizer: torch.optim.Optimizer
     schedule: Callable[[int], float]
     seed: int = 0
     step: int = 0        # every step taken
@@ -144,7 +160,7 @@ def create_train_state(cfg: PlaneRecNetConfig,
         convert_sync_batchnorm(model)
     model = model.to(device).train().set_deterministic(deterministic)
     replica = None if mesh is None else replicated(model, mesh)
-    return TrainState(cfg, model, make_optimizer(model, per_module_lr),
+    return TrainState(cfg, model, make_optimizer(model, per_module_lr, cfg),
                       lr_schedule(cfg), seed=seed, deterministic=deterministic,
                       mesh=mesh, replica=replica)
 
@@ -225,17 +241,19 @@ def grad_step(state: TrainState, batch: Mapping,
     saved = [buf.clone() for buf in _bn_buffers(state.model)]
     state.optimizer.zero_grad(set_to_none=True)
     net = state.model if state.replica is None else state.replica
-    with span("trainer.forward"):
-        preds = (net(batch["image"]) if rows is None
-                 else net(batch["image"], spatial=rows))
-    with span("trainer.loss"):
-        losses = compute_losses(
-            state.cfg, preds, batch, vnl_indices=vnl_indices,
-            generator=state.generator(), deterministic=state.deterministic,
-            mesh=None if mesh is None else mesh.data_axis())
-        total = sum(losses.values())
-    with span("trainer.backward"):
-        (total if rows is None else total / mesh.n_spatial).backward()
+    with tf32_switches(state.cfg):
+        with span("trainer.forward"):
+            preds = (net(batch["image"]) if rows is None
+                     else net(batch["image"], spatial=rows))
+        with span("trainer.loss"):
+            losses = compute_losses(
+                state.cfg, preds, batch, vnl_indices=vnl_indices,
+                generator=state.generator(),
+                deterministic=state.deterministic,
+                mesh=None if mesh is None else mesh.data_axis())
+            total = sum(losses.values())
+        with span("trainer.backward"):
+            (total if rows is None else total / mesh.n_spatial).backward()
     losses = dict(losses, total=total)
     if state.mesh is not None:
         summed = state.mesh.all_sum(torch.stack(list(losses.values())))
@@ -245,8 +263,10 @@ def grad_step(state: TrainState, batch: Mapping,
 
 def apply_grads(state: TrainState, total: torch.Tensor,
                 saved_bn: List[torch.Tensor]) -> bool:
-    """Adam's update, or, when ``total`` is not finite, no update and the
-    BatchNorm running statistics put back. Returns whether it applied."""
+    """The optimizer's update (the gradients clipped first where
+    ``cfg.clip_grad_norm`` is set), or, when ``total`` is not finite, no
+    update and the BatchNorm running statistics put back. Returns whether
+    it applied."""
     with span("trainer.apply_grads"):
         with span("trainer.finite_read"):
             finite = bool(torch.isfinite(total))
@@ -254,6 +274,11 @@ def apply_grads(state: TrainState, total: torch.Tensor,
             lr = state.schedule(state.updates)
             for group in state.optimizer.param_groups:
                 group["lr"] = lr * group["lr_mult"]
+            if state.cfg.clip_grad_norm is not None:
+                nn.utils.clip_grad_norm_(
+                    [p for p in state.model.parameters()
+                     if p.grad is not None], state.cfg.clip_grad_norm,
+                    foreach=True)
             state.optimizer.step()
             state.updates += 1
         else:

@@ -3,9 +3,10 @@
 Weights are saved as the JAX package saves them (``params/...`` and
 ``batch_stats/...`` with "/"-joined keys, HWIO kernels), so either
 package's runner loads the other's weights. A train state adds what a
-resume needs: Adam's state under ``adam/{exp_avg,exp_avg_sq,step}/<port
-name>``, the counters ``step`` and ``updates`` and the ``seed`` of the
-step's random numbers. Files are written
+resume needs: the optimizer's state, Adam's under ``adam/{exp_avg,
+exp_avg_sq,step}/<port name>`` and SGD's under ``sgd/momentum_buffer/
+<port name>``, the counters ``step`` and ``updates`` and the ``seed`` of
+the step's random numbers. Files are written
 atomically: a temporary file in the same directory, then ``os.replace``.
 """
 
@@ -20,7 +21,9 @@ import torch
 from planerecnet_tpu_torch.utils.weights import (from_jax_variables,
                                                  load_npz, to_jax_variables)
 
-_MOMENTS = ("exp_avg", "exp_avg_sq")
+
+def _prefix(optimizer: torch.optim.Optimizer) -> str:
+    return "sgd" if isinstance(optimizer, torch.optim.SGD) else "adam"
 
 
 def _atomic_savez(path: str, flat: Dict[str, np.ndarray]) -> str:
@@ -49,13 +52,16 @@ def load_weights(path: str, model: torch.nn.Module) -> None:
 
 
 def save_train_state(path: str, state) -> str:
-    """Weights, Adam's moments and the step counters of a ``TrainState``."""
+    """Weights, the optimizer's state and the step counters of a
+    ``TrainState``."""
     flat = to_jax_variables(state.model.state_dict())
     names = {p: n for n, p in state.model.named_parameters()}
+    pre = _prefix(state.optimizer)
     for p, st in state.optimizer.state.items():
-        for moment in _MOMENTS:
-            flat[f"adam/{moment}/{names[p]}"] = st[moment].cpu().numpy()
-        flat[f"adam/step/{names[p]}"] = np.asarray(float(st["step"]))
+        for key in sorted(k for k in st if k != "step"):
+            flat[f"{pre}/{key}/{names[p]}"] = st[key].cpu().numpy()
+        if "step" in st:
+            flat[f"{pre}/step/{names[p]}"] = np.asarray(float(st["step"]))
     flat["step"] = np.asarray(state.step)
     flat["updates"] = np.asarray(state.updates)
     flat["seed"] = np.asarray(state.seed)
@@ -64,19 +70,25 @@ def save_train_state(path: str, state) -> str:
 
 def load_train_state(path: str, state) -> None:
     """Restore a ``TrainState`` in place from ``save_train_state``'s file:
-    weights, Adam's state (none is saved before the first update), the
-    counters and the seed."""
+    weights, the optimizer's state (none is saved before the first
+    update), the counters and the seed."""
     load_weights(path, state.model)
+    pre = _prefix(state.optimizer)
     with np.load(path, allow_pickle=False) as data:
         state.step = int(data["step"])
         state.updates = int(data["updates"])
         state.seed = int(data["seed"])
         state.optimizer.state.clear()
+        saved: Dict[str, Dict[str, str]] = {}
+        for f in data.files:
+            parts = f.split("/", 2)
+            if len(parts) == 3 and parts[0] == pre:
+                saved.setdefault(parts[2], {})[parts[1]] = f
         for name, p in state.model.named_parameters():
-            key = f"adam/exp_avg/{name}"
-            if key not in data.files:
+            if name not in saved:
                 continue
-            state.optimizer.state[p] = {
-                "step": torch.tensor(float(data[f"adam/step/{name}"])),
-                **{m: torch.from_numpy(data[f"adam/{m}/{name}"]).to(p.device)
-                   for m in _MOMENTS}}
+            st = {key: torch.from_numpy(data[f]).to(p.device)
+                  for key, f in saved[name].items() if key != "step"}
+            if "step" in saved[name]:
+                st["step"] = torch.tensor(float(data[saved[name]["step"]]))
+            state.optimizer.state[p] = st

@@ -45,10 +45,13 @@ PRESETS = ["PlaneRecNet_tiny_config", "PlaneRecNet_50_config",
 
 
 def port_cfg(jcfg, tcls=tconfig.PlaneRecNetConfig):
-    """The port's config with the values of a JAX config (the fields the
-    port has)."""
+    """The port's config with the values of a JAX config (the fields both
+    have; the port's own fields, which the JAX package lacks, at their
+    defaults, which reproduce its behaviour)."""
     kw = {}
     for f in dataclasses.fields(tcls):
+        if not hasattr(jcfg, f.name):
+            continue
         v = getattr(jcfg, f.name)
         if dataclasses.is_dataclass(v):
             v = port_cfg(v, type(getattr(tcls(), f.name)))

@@ -39,7 +39,9 @@ STEP_TREE = [             # (name, parent's name), in the order they open
     ("trainer.step", None),
     ("trainer.upload", "trainer.step"),
     ("trainer.forward", "trainer.step"),
+    ("heads.instance", "trainer.forward"),
     ("trainer.loss", "trainer.step"),
+    ("loss.targets", "trainer.loss"),
     ("trainer.backward", "trainer.step"),
     ("trainer.apply_grads", "trainer.step"),
     ("trainer.finite_read", "trainer.apply_grads"),
@@ -48,6 +50,7 @@ REQUEST_TREE = [
     ("runner.request", None),
     ("runner.upload", "runner.request"),
     ("runner.forward", "runner.request"),
+    ("heads.instance", "runner.forward"),
     ("runner.postprocess", "runner.request"),
 ]
 
@@ -189,7 +192,8 @@ def test_request_span_tree():
         runner.infer(_frame())
     spans = timer.collect()
     assert [_tree(spans, i) for i in range(len(spans))] == REQUEST_TREE * 2
-    assert [_root(spans, i) for i in range(len(spans))] == [0] * 4 + [4] * 4
+    n = len(REQUEST_TREE)
+    assert [_root(spans, i) for i in range(len(spans))] == [0] * n + [n] * n
 
 
 def test_spans_are_user_annotations_under_the_profiler():
